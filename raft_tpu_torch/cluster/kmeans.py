@@ -1,0 +1,227 @@
+"""K-means (Lloyd) with k-means++ init (``raft_tpu.cluster.kmeans``
+counterpart; reference ``cluster/kmeans.cuh:89``).
+
+The EM loop, E step and M step follow the JAX package step for step:
+the loop runs while ``it < max_iter`` and the squared center shift is
+above ``tol²``, empty clusters keep their previous center, and a final E
+step makes labels and inertia match the returned centers. With the same
+initial centers (``init="array"``) both packages walk the same
+trajectory. Random draws come from an explicit ``torch.Generator``
+seeded with ``params.seed``, so ``random``/``kmeans++`` inits differ from
+``jax.random``'s.
+
+``algorithm="flash"`` is the Flash-KMeans E step: sample norms cached once
+per fit and reused by every iteration, rows assigned in blocks. The JAX
+package also skips center tiles by a norm bound; that skip never changes
+a label, and a data-dependent skip costs a host round trip per tile on a
+GPU, so the port computes every tile. ``find_k`` and ``fit_minibatch``
+are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.core.resources import Resources
+from raft_tpu_torch.ops.distance import DistanceType, is_min_close, resolve_metric, row_norms
+from raft_tpu_torch.ops.fused_1nn import min_cluster_and_distance, normalize_rows
+
+
+@dataclasses.dataclass
+class KMeansParams:
+    """``cluster/kmeans_types.hpp:38-70`` analog."""
+
+    n_clusters: int = 8
+    max_iter: int = 300
+    tol: float = 1e-4
+    init: str = "kmeans++"  # "kmeans++" | "random" | "array"
+    n_init: int = 1
+    metric: DistanceType = DistanceType.L2Expanded
+    seed: int = 0
+    oversampling_factor: float = 2.0  # kept for param parity; unused by Lloyd
+    batch_samples: int = 1 << 15  # kept for param parity
+    algorithm: str = "lloyd"  # "lloyd" | "flash"
+
+
+@dataclasses.dataclass
+class KMeansOutput:
+    centroids: torch.Tensor  # [k, d] f32
+    labels: torch.Tensor  # [n] i32
+    inertia: float
+    n_iter: int
+
+
+def make_generator(seed: int, device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return g
+
+
+def kmeans_plus_plus(gen: torch.Generator, X: torch.Tensor, k: int, sample_weights=None) -> torch.Tensor:
+    """k-means++ seeding: first center uniform, then each next center drawn
+    with probability proportional to (weighted) squared distance to the
+    nearest chosen center."""
+    n, d = X.shape
+    w = torch.ones((n,), device=X.device) if sample_weights is None else sample_weights.float()
+    first = int(torch.randint(0, n, (1,), generator=gen, device=X.device))
+    centers = torch.zeros((k, d), dtype=torch.float32, device=X.device)
+    centers[0] = X[first]
+    min_d2 = torch.sum((X - X[first]) ** 2, dim=1)
+    for i in range(1, k):
+        p = torch.clamp(w * min_d2, min=1e-30)
+        idx = torch.multinomial(p, 1, generator=gen)
+        c = X[idx[0]]
+        centers[i] = c
+        min_d2 = torch.minimum(min_d2, torch.sum((X - c) ** 2, dim=1))
+    return centers
+
+
+def update_centroids(X, labels, k: int, old_centroids, weights):
+    """M step: weighted mean of assigned points; empty clusters keep their
+    previous centroid. Returns ``(centroids, counts)``."""
+    lab = labels.to(torch.int64)
+    sums = torch.zeros((k, X.shape[1]), dtype=torch.float32, device=X.device)
+    sums.index_add_(0, lab, X * weights[:, None])
+    counts = torch.zeros((k,), dtype=torch.float32, device=X.device)
+    counts.index_add_(0, lab, weights)
+    means = sums / torch.clamp(counts[:, None], min=1e-9)
+    return torch.where(counts[:, None] > 0, means, old_centroids), counts
+
+
+def flash_norm_cache(X, metric=DistanceType.L2Expanded):
+    """Per-dataset arrays the flash E step reuses across EM iterations:
+    ``(rows, squared norms, norms)`` — unit rows for cosine."""
+    metric = resolve_metric(metric)
+    X = torch.as_tensor(X).to(torch.float32)
+    if metric == DistanceType.CosineExpanded:
+        X = normalize_rows(X)
+    xn = row_norms(X)
+    return (X, xn, torch.sqrt(xn))
+
+
+def flash_min_cluster_and_distance(
+    X,
+    centroids,
+    metric=DistanceType.L2Expanded,
+    cache=None,
+    row_block: int = 65536,
+):
+    """Same labels and distances as :func:`min_cluster_and_distance`, with
+    the sample norms taken from ``cache`` (:func:`flash_norm_cache`)."""
+    metric = resolve_metric(metric)
+    if cache is None:
+        cache = flash_norm_cache(X, metric)
+    Xc, xn, _ = cache
+    c = torch.as_tensor(centroids).to(device=Xc.device, dtype=torch.float32)
+    if metric == DistanceType.InnerProduct:
+        return min_cluster_and_distance(Xc, c, metric)
+    if metric == DistanceType.CosineExpanded:
+        c = normalize_rows(c)
+    cn = row_norms(c)
+    pad = torch.isinf(cn)[None, :]
+    labels, vals = [], []
+    for s in range(0, Xc.shape[0], row_block):
+        dot = Xc[s : s + row_block] @ c.T
+        d2 = torch.clamp(xn[s : s + row_block, None] + cn[None, :] - 2.0 * dot, min=0.0)
+        d2 = torch.where(pad, torch.full_like(d2, float("inf")), d2)
+        v, i = torch.min(d2, dim=1)
+        vals.append(v)
+        labels.append(i.to(torch.int32))
+    v = torch.cat(vals)
+    lab = torch.cat(labels)
+    if metric == DistanceType.CosineExpanded:
+        return lab, 0.5 * v
+    if metric in (DistanceType.L2SqrtExpanded, DistanceType.L2SqrtUnexpanded):
+        v = torch.sqrt(v)
+    return lab, v
+
+
+def _lloyd(X, init_centers, k: int, metric, max_iter: int, tol: float, weights, flash: bool):
+    if flash:
+        cache = flash_norm_cache(X, metric)
+
+        def assign(c):
+            return flash_min_cluster_and_distance(X, c, metric=metric, cache=cache)
+    else:
+
+        def assign(c):
+            return min_cluster_and_distance(X, c, metric=metric)
+
+    tol2 = float(torch.tensor(tol * tol, dtype=torch.float32))  # f32, as the JAX carry
+    centers = init_centers
+    it, shift2 = 0, float("inf")
+    while it < max_iter and shift2 > tol2:
+        labels, _ = assign(centers)
+        new_centers, _ = update_centroids(X, labels, k, centers, weights)
+        shift2 = float(torch.sum((new_centers - centers) ** 2))
+        centers = new_centers
+        it += 1
+    labels, dists = assign(centers)
+    return KMeansOutput(
+        centroids=centers, labels=labels, inertia=float(torch.sum(weights * dists)), n_iter=it
+    )
+
+
+def fit(
+    X,
+    params: Optional[KMeansParams] = None,
+    centroids: Optional[torch.Tensor] = None,
+    sample_weights: Optional[torch.Tensor] = None,
+    res: Optional[Resources] = None,
+    **kwargs,
+) -> KMeansOutput:
+    """Lloyd EM (``kmeans::fit``). ``X`` is taken on its own device."""
+    if params is None:
+        params = KMeansParams(**kwargs)
+    metric = resolve_metric(params.metric)
+    X = torch.as_tensor(X).to(torch.float32)
+    if res is not None:
+        X = X.to(res.device)
+    expects(X.ndim == 2, "X must be [n_samples, n_features]")
+    n, d = X.shape
+    k = params.n_clusters
+    expects(0 < k <= n, "n_clusters=%d out of range for %d samples", k, n)
+    expects(
+        params.init != "array" or centroids is not None,
+        "init='array' requires an explicit centroids argument",
+    )
+    expects(
+        params.algorithm in ("lloyd", "flash"),
+        "algorithm must be 'lloyd' or 'flash', got %s", params.algorithm,
+    )
+    weights = (
+        torch.ones((n,), dtype=torch.float32, device=X.device)
+        if sample_weights is None
+        else torch.as_tensor(sample_weights).to(device=X.device, dtype=torch.float32)
+    )
+    expects(tuple(weights.shape) == (n,), "sample_weights must be [n_samples]")
+    min_close = is_min_close(metric)
+    gen = make_generator(params.seed, X.device)
+    best = None
+    for _trial in range(max(1, params.n_init)):
+        if centroids is not None:
+            init_centers = torch.as_tensor(centroids).to(device=X.device, dtype=torch.float32)
+            expects(tuple(init_centers.shape) == (k, d), "explicit centroids shape mismatch")
+        elif params.init == "random":
+            idx = torch.randperm(n, generator=gen, device=X.device)[:k]
+            init_centers = X[idx]
+        else:
+            init_centers = kmeans_plus_plus(gen, X, k, sample_weights)
+        out = _lloyd(X, init_centers, k, metric, params.max_iter, params.tol, weights,
+                     flash=params.algorithm == "flash")
+        better = best is None or (
+            out.inertia < best.inertia if min_close else out.inertia > best.inertia
+        )
+        if better:
+            best = out
+        if centroids is not None:
+            break
+    return best
+
+
+def predict(X, centroids, metric=DistanceType.L2Expanded) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Assign samples to nearest centroids. Returns ``(labels, distances)``."""
+    return min_cluster_and_distance(torch.as_tensor(X).to(torch.float32), centroids, metric=metric)

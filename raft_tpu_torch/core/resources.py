@@ -1,0 +1,85 @@
+"""Execution context (``raft_tpu.core.resources`` counterpart).
+
+``Resources`` carries what the reference's ``raft::resources`` handle
+carries that PyTorch does not already own: the device new tensors go to,
+the stream kernels launch on, and an explicit ``torch.Generator``.
+
+``device=None`` means ``torch.device("cuda")``. Without a card that
+raises: the port never quietly runs on the CPU. Tests pass
+``device="cpu"``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Optional, Union
+
+import torch
+
+from raft_tpu_torch.core.errors import LogicError
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """``None`` -> ``cuda``; a CUDA device must exist."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise LogicError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU"
+        )
+    return dev
+
+
+@dataclasses.dataclass
+class Resources:
+    """Per-call execution context.
+
+    ``device``: where new tensors are placed (default ``cuda``).
+    ``seed``: seeds the resource-owned ``torch.Generator``.
+    ``workspace_bytes``: byte budget batching heuristics may assume for
+    temporaries (1 GiB, as in the JAX package).
+    """
+
+    device: Union[None, str, torch.device] = None
+    seed: int = 0
+    workspace_bytes: int = 1 << 30
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+
+    @property
+    def stream(self):
+        """The stream kernels launch on (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self.device)
+
+    def sync(self) -> None:
+        """Block until all queued work on this device is complete."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+_default_resources: Optional[Resources] = None
+_default_lock = threading.Lock()
+
+
+def default_resources() -> Resources:
+    """Process-global default handle on ``cuda`` (lazy)."""
+    global _default_resources
+    with _default_lock:
+        if _default_resources is None:
+            _default_resources = Resources()
+        return _default_resources
+
+
+def ensure_resources(res: Optional[Resources] = None, device=None) -> Resources:
+    """``res`` if given; else a handle on ``device`` if given; else the
+    process default (``cuda``)."""
+    if res is not None:
+        return res
+    if device is not None:
+        return Resources(device=device)
+    return default_resources()

@@ -1,0 +1,200 @@
+"""Brute-force (exact) kNN index (``raft_tpu.neighbors.brute_force``
+counterpart).
+
+The index holds the dataset and f32 squared norms; :func:`search` walks
+the dataset in tiles, computes each [query_batch, tile] distance block as
+an f32 matmul plus epilogue and folds it into a running top-k
+(:func:`raft_tpu_torch.ops.select_k.running_merge`), so peak memory is
+O(batch * tile). It is the ground truth of the port's recall checks and
+the distance core of :mod:`raft_tpu_torch.neighbors.refine`. The JAX
+package's ``mode="approx"`` and ``BatchKQuery`` are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import io
+from typing import BinaryIO, Optional, Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.core import serialize as ser
+from raft_tpu_torch.core.bitset import Bitset
+from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.core.resources import Resources, ensure_resources
+from raft_tpu_torch.ops.distance import (
+    SUPPORTED,
+    DistanceType,
+    expanded_distance,
+    is_min_close,
+    resolve_metric,
+    row_norms,
+)
+from raft_tpu_torch.ops.select_k import running_merge, worst_value
+
+NORM_METRICS = frozenset(
+    {DistanceType.L2Expanded, DistanceType.L2SqrtExpanded, DistanceType.CosineExpanded}
+)
+
+
+@dataclasses.dataclass
+class BruteForceIndex:
+    """Persistent exact-kNN index."""
+
+    dataset: torch.Tensor  # [n_rows, dim]
+    norms: Optional[torch.Tensor]  # [n_rows] f32 squared norms, or None
+    metric: DistanceType
+    metric_arg: float
+
+    @property
+    def size(self) -> int:
+        return self.dataset.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.dataset.shape[1]
+
+
+def build(dataset, metric=DistanceType.L2SqrtExpanded, metric_arg: float = 2.0,
+          res: Optional[Resources] = None) -> BruteForceIndex:
+    """Store the dataset on ``res``'s device (default ``cuda``) and
+    precompute squared norms for the norm metrics."""
+    res = ensure_resources(res)
+    metric = resolve_metric(metric)
+    expects(metric in SUPPORTED, "brute_force: metric %s is not ported yet", metric)
+    dataset = ser.as_tensor(dataset, res.device)
+    expects(dataset.ndim == 2, "dataset must be [n_rows, dim]")
+    norms = row_norms(dataset) if metric in NORM_METRICS else None
+    return BruteForceIndex(dataset=dataset, norms=norms, metric=metric, metric_arg=float(metric_arg))
+
+
+def _search_batch(index: BruteForceIndex, queries, filter_mask, *, k: int, tile: int):
+    metric = index.metric
+    select_min = is_min_close(metric)
+    worst = worst_value(torch.float32, select_min)
+    n = index.size
+    qb = queries.shape[0]
+    q_sqnorm = row_norms(queries) if metric in NORM_METRICS else None
+    acc_v = torch.full((qb, k), worst, dtype=torch.float32, device=queries.device)
+    acc_i = torch.full((qb, k), -1, dtype=torch.int32, device=queries.device)
+    for s in range(0, n, tile):
+        yt = index.dataset[s : s + tile]
+        ynt = index.norms[s : s + tile] if index.norms is not None else None
+        dist = expanded_distance(queries, yt, metric, q_sqnorm, ynt)
+        ids = torch.arange(s, s + yt.shape[0], dtype=torch.int32, device=queries.device)
+        if filter_mask is not None:
+            dist = torch.where(filter_mask[s : s + tile][None, :], dist, torch.full_like(dist, worst))
+        acc_v, acc_i = running_merge(acc_v, acc_i, dist, ids[None, :].expand_as(dist),
+                                     select_min=select_min)
+    return acc_v, acc_i
+
+
+def search(
+    index: BruteForceIndex,
+    queries,
+    k: int,
+    prefilter: Optional[Bitset] = None,
+    query_batch: int = 4096,
+    dataset_tile: Optional[int] = None,
+    res: Optional[Resources] = None,
+    dataset=None,
+    refine_ratio: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-nearest-neighbor search. Returns best-first ``(distances
+    [nq, k] f32, indices [nq, k] i32)``; ``prefilter`` is a keep-bitset
+    over dataset rows. ``dataset`` + ``refine_ratio > 1`` re-ranks
+    ``k * refine_ratio`` candidates against ``dataset``."""
+    dev = index.dataset.device
+    queries = ser.as_tensor(queries, dev)
+    if dataset is not None and refine_ratio > 1:
+        from raft_tpu_torch.neighbors.refine import check_refine_dataset, refine
+
+        check_refine_dataset(dataset, index.size, "brute_force")
+        kk = min(k * refine_ratio, index.size)
+        _, cand = search(index, queries, kk, prefilter=prefilter, query_batch=query_batch,
+                         dataset_tile=dataset_tile, res=res)
+        return refine(ser.as_tensor(dataset, dev), queries, cand, k, metric=index.metric,
+                      metric_arg=index.metric_arg)
+    expects(queries.ndim == 2, "queries must be [n_queries, dim]")
+    expects(queries.shape[1] == index.dim, "query dim %d != index dim %d", queries.shape[1], index.dim)
+    n = index.size
+    expects(0 < k <= n, "k=%d out of range for index of size %d", k, n)
+    if prefilter is not None:
+        expects(prefilter.size == n, "prefilter size %d != index size %d", prefilter.size, n)
+    nq = queries.shape[0]
+    if dataset_tile is None:
+        workspace = res.workspace_bytes if res is not None else 1 << 30
+        qb = min(query_batch, nq)
+        dataset_tile = max(512, min(n, workspace // (8 * max(qb, 1))))
+    dataset_tile = int(min(dataset_tile, n))
+    filter_mask = prefilter.to_mask().to(dev) if prefilter is not None else None
+    out_v, out_i = [], []
+    for start in range(0, nq, query_batch):
+        v, i = _search_batch(index, queries[start : start + query_batch], filter_mask,
+                             k=k, tile=dataset_tile)
+        out_v.append(v)
+        out_i.append(i)
+    if len(out_v) == 1:
+        return out_v[0], out_i[0]
+    return torch.cat(out_v, dim=0), torch.cat(out_i, dim=0)
+
+
+def knn(dataset, queries, k: int, metric=DistanceType.L2SqrtExpanded, metric_arg: float = 2.0,
+        res: Optional[Resources] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-shot build + search."""
+    idx = build(dataset, metric=metric, metric_arg=metric_arg, res=res)
+    return search(idx, queries, k, res=res)
+
+
+def from_numpy(arrays: dict, metric, metric_arg: float = 2.0, device=None) -> BruteForceIndex:
+    """An index from numpy arrays: keys ``dataset`` and optionally
+    ``norms``. ``device=None`` means ``cuda``."""
+    dev = ensure_resources(device=device if device is not None else "cuda").device
+    norms = arrays.get("norms")
+    return BruteForceIndex(
+        dataset=ser.from_numpy(np.asarray(arrays["dataset"]), dev),
+        norms=None if norms is None else ser.from_numpy(np.asarray(norms), dev),
+        metric=resolve_metric(metric),
+        metric_arg=float(metric_arg),
+    )
+
+
+# -- serialization (same bytes as the JAX package) --------------------------
+
+_KIND = "brute_force"
+_VERSION = 1
+
+
+def _write_body(index: BruteForceIndex, stream: BinaryIO) -> None:
+    ser.serialize_scalar(stream, int(index.metric), "int32")
+    ser.serialize_scalar(stream, float(index.metric_arg), "float64")
+    ser.serialize_scalar(stream, int(index.norms is not None), "int32")
+    ser.serialize_array(stream, index.dataset)
+    if index.norms is not None:
+        ser.serialize_array(stream, index.norms)
+
+
+def save(index: BruteForceIndex, stream: BinaryIO) -> None:
+    body = io.BytesIO()
+    _write_body(index, body)
+    ser.save_stream(stream, _KIND, _VERSION, body.getvalue())
+
+
+def load(stream: BinaryIO, res: Optional[Resources] = None, device=None) -> BruteForceIndex:
+    dev = ensure_resources(res, device).device
+    _version, body = ser.load_stream(stream, _KIND)
+    metric = DistanceType(ser.deserialize_scalar(body, "int32"))
+    metric_arg = float(ser.deserialize_scalar(body, "float64"))
+    has_norms = bool(ser.deserialize_scalar(body, "int32"))
+    dataset = ser.deserialize_array(body, dev)
+    norms = ser.deserialize_array(body, dev) if has_norms else None
+    return BruteForceIndex(dataset=dataset, norms=norms, metric=metric, metric_arg=metric_arg)
+
+
+def save_path(index: BruteForceIndex, path: str) -> str:
+    return ser.atomic_write(path, lambda f: save(index, f))
+
+
+def load_path(path: str, res: Optional[Resources] = None, device=None) -> BruteForceIndex:
+    with open(path, "rb") as f:
+        return load(f, res=res, device=device)

@@ -1,0 +1,95 @@
+"""Candidate re-ranking with exact distances (``raft_tpu.neighbors.refine``
+counterpart; reference ``neighbors/refine-inl.cuh:70``).
+
+Gathers each query's candidate vectors from a device-resident dataset,
+computes exact f32 distances and keeps the best k. The JAX package's
+host-tier gather (``HostVectorStore``) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.ops.distance import (
+    DistanceType,
+    SUPPORTED,
+    is_min_close,
+    resolve_metric,
+    row_norms,
+)
+from raft_tpu_torch.ops.select_k import select_k, worst_value
+
+
+def check_refine_dataset(dataset, index_size: int, algo: str = "index") -> None:
+    """Validate a refine ``dataset`` before any scan runs."""
+    shape = tuple(dataset.shape) if hasattr(dataset, "shape") else np.shape(dataset)
+    expects(len(shape) == 2, "%s refine dataset must be [n_rows, dim], got shape %s", algo, shape)
+    expects(
+        int(shape[0]) >= index_size,
+        "%s refine dataset has %d rows but the index holds %d vectors — every "
+        "stored id must be gatherable; pass the full build dataset",
+        algo, int(shape[0]), index_size,
+    )
+
+
+def _exact_rerank(cand_vecs, queries, candidates, valid, *, k: int, metric: DistanceType):
+    """Exact per-candidate distances + top-k. ``cand_vecs`` [nq, n_cand, d]."""
+    qf = queries.to(torch.float32)
+    cf = cand_vecs.to(torch.float32)
+    select_min = is_min_close(metric)
+    worst = worst_value(torch.float32, select_min)
+    dot = torch.bmm(cf, qf[:, :, None])[:, :, 0]  # [nq, n_cand]
+    if metric == DistanceType.InnerProduct:
+        dists = dot
+    elif metric in (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded):
+        d2 = torch.clamp(row_norms(qf)[:, None] + row_norms(cf) - 2.0 * dot, min=0.0)
+        dists = torch.sqrt(d2) if metric == DistanceType.L2SqrtExpanded else d2
+    else:
+        denom = torch.sqrt(row_norms(qf))[:, None] * torch.sqrt(row_norms(cf))
+        dists = 1.0 - dot / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    dists = torch.where(valid, dists, torch.full_like(dists, worst))
+    vals, pos = select_k(dists, k, select_min=select_min)
+    pos = pos.to(torch.int64)
+    idx = torch.gather(candidates, 1, pos)
+    idx = torch.where(torch.gather(valid, 1, pos), idx, torch.full_like(idx, -1))
+    return vals, idx
+
+
+def refine(
+    dataset,
+    queries,
+    candidates,
+    k: int,
+    metric=DistanceType.L2SqrtExpanded,
+    metric_arg: float = 2.0,
+    query_batch: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Re-rank ``candidates`` [nq, n_cand] (int32 ids into ``dataset``,
+    -1 = invalid) down to the best ``k`` by exact distance. ``query_batch``
+    0 caps the gathered [batch, n_cand, d] f32 slab at about 1 GB."""
+    metric = resolve_metric(metric)
+    expects(metric in SUPPORTED, "refine: metric %s is not ported yet", metric)
+    dataset = torch.as_tensor(dataset)
+    queries = torch.as_tensor(queries).to(dataset.device)
+    candidates = torch.as_tensor(candidates).to(device=dataset.device, dtype=torch.int32)
+    expects(candidates.ndim == 2, "candidates must be [n_queries, n_candidates]")
+    expects(candidates.shape[0] == queries.shape[0], "queries/candidates row mismatch")
+    n_cand = candidates.shape[1]
+    expects(0 < k <= n_cand, "k=%d out of range for %d candidates", k, n_cand)
+    nq = queries.shape[0]
+    if query_batch <= 0:
+        query_batch = max(256, (1 << 30) // max(1, n_cand * dataset.shape[1] * 4))
+    out_v, out_i = [], []
+    for s in range(0, nq, query_batch):
+        c = candidates[s : s + query_batch]
+        valid = c >= 0
+        cand_vecs = dataset[torch.where(valid, c, torch.zeros_like(c)).to(torch.int64)]
+        v, i = _exact_rerank(cand_vecs, queries[s : s + query_batch], c, valid, k=k, metric=metric)
+        out_v.append(v)
+        out_i.append(i)
+    if len(out_v) == 1:
+        return out_v[0], out_i[0]
+    return torch.cat(out_v, dim=0), torch.cat(out_i, dim=0)
