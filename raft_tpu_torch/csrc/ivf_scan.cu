@@ -42,21 +42,21 @@
 // shared loads). Scores of a chunk go to shared memory; one warp per query
 // then filters them against the query's current k-th entry with a ballot and
 // inserts the survivors in slot order into the query's sorted top-k list
-// (also in shared memory). Slots are visited in ascending order, so a new
-// candidate that ties an existing score always ranks after it.
+// (also in shared memory): topk::warp_offer in topk.cuh.
 //
 // Filling the card. A serving batch of 128 queries is one tile, i.e. only
 // qt / QB = 8 CTAs for 132 SMs. So the wrapper also splits each tile's valid
-// units into n_split contiguous shares (grid z): each CTA keeps an exact top-k
-// of its share in a partial buffer, and merge_kernel folds the n_split sorted
-// partial lists per query (disjoint slots, lexicographic order), which gives
-// the same exact top-k. The FP32 rate is held back by shared-memory loads;
-// wgmma/TMA staging is left for later work.
+// units into n_split contiguous shares (grid z, topk::unit_share), and
+// topk::merge_kernel folds the exact partial lists into the same exact top-k.
+// The FP32 rate is held back by shared-memory loads; wgmma/TMA staging is
+// left for later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 #include <math.h>
+
+#include "topk.cuh"
 
 namespace {
 
@@ -65,8 +65,6 @@ constexpr int R = 64;         // rows per staged chunk
 constexpr int DC = 128;       // features per staged chunk
 constexpr int THREADS = 256;  // 8 warps
 constexpr int WARPS = THREADS / 32;
-constexpr int SLOT_EMPTY = 0x7fffffff;
-constexpr int MAX_SPLIT = 32;  // most splits of a tile's units (merge_kernel's heads)
 
 enum Metric { kL2 = 0, kIP = 1, kCos = 2 };
 
@@ -77,10 +75,6 @@ template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16
 }
 template <> __device__ __forceinline__ float to_f32<int8_t>(int8_t x) { return (float)x; }
 template <> __device__ __forceinline__ float to_f32<uint8_t>(uint8_t x) { return (float)x; }
-
-__device__ __forceinline__ bool lex_less(float a, int sa, float b, int sb) {
-  return a < b || (a == b && sa < sb);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -110,15 +104,9 @@ ivf_scan_kernel(const T* __restrict__ list_data, const float* __restrict__ ln,
   const int n_split = gridDim.z;
   const int split = blockIdx.z;
   const long long nq_pad = (long long)gridDim.y * qt;
-  int n_valid = 0;
-  for (int j = 0; j < P; ++j) n_valid += probe_valid[(long long)tile * P + j] > 0 ? 1 : 0;
-  const int v_lo = (int)((long long)n_valid * split / n_split);
-  const int v_hi = (int)((long long)n_valid * (split + 1) / n_split);
-
-  for (int e = tid; e < QB * k; e += THREADS) {
-    tk_v[e] = INFINITY;
-    tk_s[e] = SLOT_EMPTY;
-  }
+  int v_lo, v_hi;
+  topk::unit_share(probe_valid + (long long)tile * P, P, split, n_split, &v_lo, &v_hi);
+  topk::init(tk_v, tk_s, QB * k, tid, THREADS);
 
   // scoring map: rows r_a = lane, r_b = lane + 32; queries qa = warp, qb = warp + 8
   const int ra = lane, rb = lane + 32;
@@ -205,83 +193,17 @@ ivf_scan_kernel(const T* __restrict__ list_data, const float* __restrict__ ln,
       __syncthreads();
       // merge: warp w owns queries w and w + WARPS
       for (int qq = warp; qq < live; qq += WARPS) {
-        float* tv = tk_v + qq * k;
-        int* ts = tk_s + qq * k;
         for (int base = 0; base < R; base += 32) {
-          const float cand = sc[qq * R + base + lane];
-          const int cslot = (int)(unit_row0 + r0 + base + lane);
-          const bool ok0 = cand < INFINITY && lex_less(cand, cslot, tv[k - 1], ts[k - 1]);
-          unsigned mask = __ballot_sync(0xffffffffu, ok0);
-          while (mask) {
-            const int b = __ffs(mask) - 1;
-            mask &= mask - 1;
-            const float cv = __shfl_sync(0xffffffffu, cand, b);
-            const int cs = __shfl_sync(0xffffffffu, cslot, b);
-            if (!lex_less(cv, cs, tv[k - 1], ts[k - 1])) continue;  // warp-uniform
-            int cnt = 0;
-            for (int e = lane; e < k; e += 32) cnt += lex_less(tv[e], ts[e], cv, cs) ? 1 : 0;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-            const int pos = cnt;  // entries strictly before the candidate
-            float sv[8];
-            int ss[8];
-            int n_own = 0;
-            for (int e = lane; e < k; e += 32) {
-              if (e > pos) { sv[n_own] = tv[e - 1]; ss[n_own] = ts[e - 1]; }
-              ++n_own;
-            }
-            __syncwarp();
-            n_own = 0;
-            for (int e = lane; e < k; e += 32) {
-              if (e > pos) { tv[e] = sv[n_own]; ts[e] = ss[n_own]; }
-              ++n_own;
-            }
-            if (lane == 0) { tv[pos] = cv; ts[pos] = cs; }
-            __syncwarp();
-          }
+          topk::warp_offer(tk_v + qq * k, tk_s + qq * k, k, sc[qq * R + base + lane],
+                           (int)(unit_row0 + r0 + base + lane), lane);
         }
       }
       __syncthreads();
     }
   }
 
-  for (int qq = warp; qq < live; qq += WARPS) {
-    const long long orow = (n_split > 1 ? split * nq_pad : 0) + qrow0 + qq;
-    for (int e = lane; e < k; e += 32) {
-      const float v = tk_v[qq * k + e];
-      const int s = tk_s[qq * k + e];
-      out_v[orow * k + e] = v;
-      // partial lists keep the empty sentinel for the merge
-      out_s[orow * k + e] = n_split > 1 ? s : ((s == SLOT_EMPTY || !(v < INFINITY)) ? -1 : s);
-    }
-  }
-}
-
-// Folds n_split sorted partial top-k lists [n_split][rows][k] into the final
-// [rows][k] (lexicographic (score, slot) order; splits hold disjoint slots).
-// One thread per query row.
-__global__ void merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_s,
-                             float* __restrict__ out_v, int* __restrict__ out_s,
-                             int rows, int k, int n_split) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= rows) return;
-  int head[MAX_SPLIT];
-  for (int s = 0; s < n_split; ++s) head[s] = 0;
-  for (int e = 0; e < k; ++e) {
-    int best = -1;
-    float bv = INFINITY;
-    int bs = SLOT_EMPTY;
-    for (int s = 0; s < n_split; ++s) {
-      if (head[s] >= k) continue;
-      const long long at = ((long long)s * rows + row) * k + head[s];
-      const float v = part_v[at];
-      const int sl = part_s[at];
-      if (v < INFINITY && lex_less(v, sl, bv, bs)) { best = s; bv = v; bs = sl; }
-    }
-    if (best >= 0) ++head[best];
-    out_v[(long long)row * k + e] = bv;
-    out_s[(long long)row * k + e] = best >= 0 ? bs : -1;
-  }
+  topk::write_out(tk_v, tk_s, k, live, qrow0, nq_pad, split, n_split, out_v, out_s, warp, WARPS,
+                  lane);
 }
 
 template <typename T>
@@ -300,9 +222,7 @@ int launch(const void* list_data, const float* ln, const int* li, const float* q
       n_split > 1 ? part_v : out_v, n_split > 1 ? part_s : out_s, gm, d, qt, P, k, metric);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return (int)err;
-  const int rows = n_qt * qt;
-  merge_kernel<<<(rows + 127) / 128, 128, 0, stream>>>(part_v, part_s, out_v, out_s, rows, k, n_split);
-  return (int)cudaGetLastError();
+  return topk::launch_merge(part_v, part_s, out_v, out_s, n_qt * qt, k, n_split, stream);
 }
 
 }  // namespace
@@ -317,7 +237,9 @@ extern "C" int ivf_scan_fused_list_topk(const void* list_data, int dtype, const 
                                         float* out_v, int* out_s, float* part_v, int* part_s,
                                         int n_split, int n_qt, int gm, int d,
                                         int qt, int P, int k, int metric, void* stream) {
-  if (k < 1 || k > 256 || n_split < 1 || n_split > MAX_SPLIT) return (int)cudaErrorInvalidValue;
+  if (k < 1 || k > topk::MAX_K || n_split < 1 || n_split > topk::MAX_SPLIT) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch<float>(list_data, ln, li, queries, tile_probes, probe_valid, out_v, out_s, part_v, part_s, n_split, n_qt, gm, d, qt, P, k, metric, s);

@@ -16,9 +16,17 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core.errors import fail
 from raft_tpu_torch.ops.distance import DistanceType
 from raft_tpu_torch.ops.select_k import select_k
 from raft_tpu_torch.utils.math import round_up
+
+
+def scan_mode_not_ported(algo: str) -> None:
+    """Raise for ``mode="scan"``: the JAX package's dense scan over list
+    chunks is not ported yet."""
+    fail("%s: mode='scan' (the dense scan over all lists) is not ported yet; use "
+         "mode='fused', 'probe' or 'auto'", algo)
 
 
 def coarse_scores(centers, qf, metric) -> torch.Tensor:

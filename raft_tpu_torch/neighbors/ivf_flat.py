@@ -34,6 +34,7 @@ from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.core.resources import Resources, ensure_resources
+from raft_tpu_torch.neighbors import ivf_common
 from raft_tpu_torch.neighbors.ivf_common import pack_rows, topk_labels
 from raft_tpu_torch.ops.distance import DistanceType, resolve_metric, row_norms
 from raft_tpu_torch.ops.fused_1nn import normalize_rows
@@ -357,6 +358,8 @@ def search(
     filter_bits = prefilter.bits.to(dev) if prefilter is not None else None
     n_probes = min(params.n_probes, index.n_lists)
     nq = queries.shape[0]
+    if mode == "scan":
+        ivf_common.scan_mode_not_ported("ivf_flat")
     if mode == "auto":
         mode = "fused" if nq >= 128 and supported_metric(index.metric) else "probe"
     expects(mode in ("probe", "fused"), "mode must be auto|probe|fused, got %r", mode)

@@ -14,26 +14,23 @@ kernel cannot be built or launched) and the plain PyTorch version
 ``(score, slot)`` top-k, the JAX kernel's ``merge="exact"`` result; the
 JAX ``bank*``/``seg*`` merges approximate that top-k by dropping
 cross-step lane collisions, so any ``merge`` maps to the exact one here.
-Dot products are f32 without TF32 for every ``precision`` value; bf16,
-int8 and uint8 lists are widened to f32 per element (the JAX bf16 path
-instead rounds the queries to bf16).
+Dot products are f32 without TF32 for every ``precision`` value; int8
+and uint8 lists are widened to f32 per element. With bf16 lists the
+queries are rounded to bf16 first, as the JAX kernel does for its bf16
+matmul (``ivf_scan.py:215-217``); the products of two bf16 values are
+exact in f32, so the kernel widens both and accumulates in f32.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from raft_tpu_torch.core.errors import RaftError, expects
+from raft_tpu_torch.ops.cuda_build import build_library
 from raft_tpu_torch.ops.distance import SUPPORTED, DistanceType
 from raft_tpu_torch.ops.fused_1nn import normalize_rows
 from raft_tpu_torch.ops.select_k import select_k
@@ -45,8 +42,6 @@ MAX_K = 256
 MAX_SPLIT = 32
 _QUERIES_PER_CTA = 16  # ``QB`` in the .cu
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "csrc", "ivf_scan.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "_build")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
 _METRIC_CODE = {
     DistanceType.L2Expanded: 0,
@@ -103,51 +98,17 @@ def spatial_center_rank(centers: np.ndarray, leaf: int = 8) -> np.ndarray:
 # the kernel: build, plain version, wrapper
 # ---------------------------------------------------------------------------
 
-_build_lock = threading.Lock()
-_lib = None
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RaftError("nvcc not found: the CUDA toolkit is needed to build ivf_scan.cu")
-    return path
+_SIGNATURES = {
+    "ivf_scan_fused_list_topk":
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+}
 
 
 def build_kernel(verbose: bool = False) -> Tuple[ctypes.CDLL, float, str]:
-    """Compile ``csrc/ivf_scan.cu`` with nvcc for ``sm_90a`` into the
-    package's ``_build`` directory (once per source version) and load it.
-    Returns ``(library, build seconds, compiler output)``; the seconds are
-    0 and the output empty when the library was already loaded."""
-    global _lib
-    with _build_lock:
-        if _lib is not None:
-            return _lib, 0.0, ""
-        with open(_SRC, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        so = os.path.join(_BUILD_DIR, f"libivf_scan_{digest}.so")
-        t0 = time.perf_counter()
-        log = ""
-        if not os.path.exists(so):
-            tmp = f"{so}.tmp{os.getpid()}"
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                "-shared", "-Xcompiler", "-fPIC", "-o", tmp, os.path.abspath(_SRC),
-            ]
-            if verbose:
-                cmd.insert(1, "-Xptxas=-v")
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RaftError(f"nvcc failed to build ivf_scan.cu:\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        fn = lib.ivf_scan_fused_list_topk
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib, time.perf_counter() - t0, log
+    """Build ``csrc/ivf_scan.cu`` for ``sm_90a`` (once per source version)
+    and load it; see :func:`raft_tpu_torch.ops.cuda_build.build_library`.
+    Returns ``(library, build seconds, compiler output)``."""
+    return build_library("ivf_scan.cu", _SIGNATURES, verbose=verbose)
 
 
 def prepare_epilogue(list_norms, list_indices, metric: DistanceType) -> torch.Tensor:
@@ -177,6 +138,15 @@ def _check_args(list_data, list_indices, queries_sorted, tile_probes, probe_vali
     expects(tile_probes.shape == probe_valid.shape, "tile_probes/probe_valid shape mismatch")
 
 
+def kernel_queries(queries_sorted, list_data) -> torch.Tensor:
+    """The f32 queries the scan multiplies: rounded to bf16 and back when
+    the lists are bf16 (``ivf_scan.py:215-217``)."""
+    q = queries_sorted.to(torch.float32)
+    if list_data.dtype == torch.bfloat16:
+        q = q.to(torch.bfloat16).to(torch.float32)
+    return q
+
+
 def fused_list_topk_reference(
     list_data, list_norms, list_indices, queries_sorted, tile_probes, probe_valid,
     *, k: int, metric: DistanceType, qt: int,
@@ -187,6 +157,7 @@ def fused_list_topk_reference(
     _check_args(list_data, list_indices, queries_sorted, tile_probes, probe_valid, k, metric, qt)
     n_units, gm, d = list_data.shape
     ln = prepare_epilogue(list_norms, list_indices, metric)
+    queries = kernel_queries(queries_sorted, list_data)
     dev = queries_sorted.device
     nq_pad = queries_sorted.shape[0]
     out_v = torch.full((nq_pad, k), float("inf"), dtype=torch.float32, device=dev)
@@ -198,7 +169,7 @@ def fused_list_topk_reference(
         units = torch.sort(tp[i][pv[i] > 0].to(torch.int64)).values
         if units.numel() == 0:
             continue
-        q = queries_sorted[i * qt : (i + 1) * qt].to(torch.float32)
+        q = queries[i * qt : (i + 1) * qt]
         ud = units.to(dev)
         y = list_data[ud].reshape(-1, d).to(torch.float32)
         dot = q @ y.T
@@ -263,7 +234,7 @@ def fused_list_topk(
         expects(t.device == dev, "fused_list_topk: %s is on %s, queries on %s", name, t.device, dev)
     ln = prepare_epilogue(list_norms, list_indices, metric).contiguous()
     li = list_indices.to(torch.int32).contiguous()
-    q = queries_sorted.to(torch.float32).contiguous()
+    q = kernel_queries(queries_sorted, list_data).contiguous()
     tp = tile_probes.to(torch.int32).contiguous()
     pv = probe_valid.to(torch.int32).contiguous()
     ld = list_data.contiguous()

@@ -68,6 +68,8 @@ def _scan_inputs(dtype, with_filter, seed=0):
         data = rng.integers(-20, 20, size=(n_units, gm, d)).astype(np.int8)
     else:
         data = rng.normal(size=(n_units, gm, d)).astype(np.float32)
+    if dtype == "bfloat16":  # f32 values that bf16 holds exactly
+        data = torch.from_numpy(data).to(torch.bfloat16).to(torch.float32).numpy()
     ids = np.arange(n_units * gm, dtype=np.int32).reshape(n_units, gm)
     ids[:, 33:] = -1  # padded tail of every unit
     norms = (data.astype(np.float32) ** 2).sum(axis=2)
@@ -88,20 +90,25 @@ def _scan_inputs(dtype, with_filter, seed=0):
 
 
 @pytest.mark.parametrize("metric", METRICS)
-@pytest.mark.parametrize("dtype", ["float32", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "int8", "bfloat16"])
 @pytest.mark.parametrize("with_filter", [False, True])
 def test_plain_fused_list_topk_matches_pallas_exact(metric, dtype, with_filter):
+    """bf16 lists: both sides round the f32 queries to bf16 (the Pallas
+    kernel for its bf16 matmul, the port before its f32 one)."""
     data, norms, ids, queries, tp, pv, qt = _scan_inputs(dtype, with_filter)
     if metric == "CosineExpanded":
         queries = queries / np.maximum(np.linalg.norm(queries, axis=1, keepdims=True), 1e-12)
     k = 10
+    j_data, t_data = jnp.asarray(data), torch.from_numpy(data)
+    if dtype == "bfloat16":
+        j_data, t_data = j_data.astype(jnp.bfloat16), t_data.to(torch.bfloat16)
     jv, js = jscan.fused_list_topk(
-        jnp.asarray(data), jnp.asarray(norms), jnp.asarray(ids), jnp.asarray(queries),
+        j_data, jnp.asarray(norms), jnp.asarray(ids), jnp.asarray(queries),
         jnp.asarray(tp), jnp.asarray(pv), k=k, metric=JDT[metric], qt=qt, merge="exact",
         interpret=True,
     )
     tv, ts = tscan.fused_list_topk(
-        torch.from_numpy(data), torch.from_numpy(norms), torch.from_numpy(ids),
+        t_data, torch.from_numpy(norms), torch.from_numpy(ids),
         torch.from_numpy(queries), torch.from_numpy(tp), torch.from_numpy(pv),
         k=k, metric=TDT[metric], qt=qt,
     )
