@@ -13,7 +13,12 @@ Phases, in order; any failure exits non-zero:
    k = 10 and 100; B2 ``fused_pq_topk`` for nib8, u8 (ksub 16 and 256),
    p4 and b5 codes under L2 and IP at k = 10 and 80; B3
    ``fused_rabitq_topk`` under L2 and IP at k = 10 and 80; each with one
-   CTA per tile share and with the default split;
+   CTA per tile share and with the default split; B4 ``cagra_fused_search``
+   on CAGRA graphs of degree 16 and 32 built through the ``ivf_pq`` route,
+   under L2 and IP, with f32 and bf16 tables, at (itopk, width) of (64, 1),
+   (64, 4) and (128, 8); then the build's determinism: the same IVF-Flat
+   and IVF-PQ index built twice from one seed must be equal, and one build
+   with the float-atomic sums the port used before is timed beside them;
 3. IVF-Flat at full width: a 1,000,000 x 128 f32 clustered dataset (the
    SIFT-1M shape) and 10,000 queries made with numpy from ``--seed``;
    ``ivf_flat.build(n_lists=1024)``; served through
@@ -31,11 +36,20 @@ Phases, in order; any failure exits non-zero:
    serving shape (k = 80) against its plain version and its bound;
 5. RaBitQ: ``ivf_pq.build(n_lists=1024, pq_bits=1)``, ``search`` in auto
    mode with ``dataset=`` on the 10,000 queries; B3 at that path's shape
-   against its plain version and its bound.
+   against its plain version and its bound;
+6. CAGRA at full width: ``cagra.build(intermediate_graph_degree=32,
+   graph_degree=16, build_algo="ivf_pq")`` on phase 4's IVF-PQ index (its
+   self-search runs B2), search with ``CagraSearchParams(itopk_size=128,
+   search_width=8, dedup="post")`` and the bf16 table in fused and xla mode
+   on all 10,000 queries, an itopk sweep of 96/128/160, batch-1 and
+   batch-10 latency through ``plan_search_params``, served through
+   ``ServingEngine`` both ways; B4 at the serving shape against its plain
+   version and its bound.
 
 Each kernel's launch count is zeroed just before its path runs (phases
-3-5) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
-adds torch.profiler traces of the IVF-Flat and IVF-PQ serving backlogs.
+3-6) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
+adds torch.profiler traces of the IVF-Flat, IVF-PQ and CAGRA serving
+backlogs.
 The last line is ``{"ok": true, "device": {...}}``, after the
 ``{"kernels": [...]}`` line and the card's name and power limit. Other
 numbers print one JSON object per line with the card's name and power
@@ -67,6 +81,12 @@ H100_HBM_BYTES_S = 3.35e12
 SERVE_QT = 16
 # Query tile of the served IVF-PQ index (phase 4's sweep over 128, 32, 16).
 SERVE_QT_PQ = 16
+# Strided seed rows of the served CAGRA index. The corpus is 4096
+# well-separated blobs and the degree-16 graph has few edges between them,
+# so a beam finds a query's neighbours only when a seed row lies in the
+# query's blob: with the default 4096 seeds about 1 - 1/e of the queries
+# (recall@10 0.70), with 16384 about 1 - 1/e^4 (phase 6 prints the sweep).
+SERVE_INIT_SAMPLE = 16384
 
 
 def card_line() -> str:
@@ -156,11 +176,12 @@ def served(results, n: int):
     return ids, np.array([r.latency_ms for r in results]), buckets
 
 
-def serve_both_ways(card, eng, index_id, Q, sizes, starts, k, n, gt, kernel, phase, **extra):
+def serve_both_ways(card, eng, index_id, Q, sizes, starts, k, n, gt, kernel, phase,
+                    min_recall=0.90, **extra):
     """Serve every request as one client, then as one backlog; gate recall
-    and the one-client buckets. ``kernel.launches`` is zeroed just before
-    each serving run and read just after it. Returns the launches of both
-    runs."""
+    (``min_recall``) and the one-client buckets. ``kernel.launches`` is
+    zeroed just before each serving run and read just after it. Returns the
+    launches of both runs."""
     from raft_tpu_torch.stats.recall import neighborhood_recall
 
     runs = []
@@ -195,8 +216,8 @@ def serve_both_ways(card, eng, index_id, Q, sizes, starts, k, n, gt, kernel, pha
              requests_and_mean_ms_by_bucket=by_bucket)
         emit(card, phase=phase, serving=name, metric="serve_recall@10", value=recall,
              launches=launches)
-        if recall < 0.90:
-            raise AssertionError(f"{phase} {name} served recall@10 {recall} < 0.90")
+        if recall < min_recall:
+            raise AssertionError(f"{phase} {name} served recall@10 {recall} < {min_recall}")
         if launches <= 0:
             raise AssertionError(f"{phase} {name} serving never launched its kernel")
         if name == "one_client" and not ({"128"} < set(by_bucket)):
@@ -382,6 +403,115 @@ def time_kernel(run, a, k, reps: int) -> dict:
                 plain_ms=cuda_ms(lambda: run(a, k, reference=True), reps=1), n_split_ms=split_ms)
 
 
+def b4_args(index, queries, itopk: int, width: int, ip: bool, table_dtype: str, k: int = 10,
+            init_sample: int = 4096):
+    """B4's inputs as the fused search makes them: the neighbour table, the
+    graph and the strided seed beam in the kernel's min-ordered form."""
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops.cagra_search import WORST
+
+    sp = cagra.CagraSearchParams(itopk_size=itopk, search_width=width, init_sample=init_sample)
+    _, _, iters, _ = cagra.derive_search_config(sp, k, index.size)
+    qf = queries.to(torch.float32)
+    seed = cagra.strided_seed_ids(index.size, sp.init_sample, qf.device)
+    rows = seed.to(torch.int64)
+    v0, i0 = cagra._seed_select(qf, torch.sum(qf * qf, dim=1), index.dataset[rows].to(torch.float32),
+                                index.sqnorms[rows], seed, itopk=itopk, select_min=not ip,
+                                worst=float("-inf") if ip else float("inf"))
+    kv0 = torch.where(i0 < 0, WORST, -v0 if ip else v0)
+    kidf0 = torch.where(i0 < 0, -1, i0 * 2).to(torch.int32)
+    return dict(args=(cagra._fused_table(index, table_dtype), index.graph, qf, kv0, kidf0),
+                kw=dict(itopk=itopk, width=width, iters=iters, ip=ip))
+
+
+def run_b4(a, reference=False, work=None):
+    from raft_tpu_torch.ops import cagra_search
+
+    if reference:
+        return cagra_search.cagra_beam_reference(*a["args"], **a["kw"], work=work)
+    return cagra_search.cagra_fused_search(*a["args"], **a["kw"])
+
+
+def compare_beam(kv, ki, rv, ri) -> float:
+    """B4 against its plain version: the same ids and visited flags in every
+    slot, and the values' max abs error (both add in one order: 0.0)."""
+    if not torch.equal(ki, ri):
+        bad = (ki != ri).nonzero()[0].tolist()
+        raise AssertionError(f"B4 beam ids differ from the plain version's ({(ki != ri).sum()} "
+                             f"slots), first at {bad}: {ki[bad[0]].tolist()} vs {ri[bad[0]].tolist()}")
+    err = float((kv - rv).abs().max())
+    if err != 0.0:
+        raise AssertionError(f"B4 beam values differ from the plain version's: max abs err {err}")
+    return err
+
+
+def b4_bound_ms(a, work) -> tuple:
+    """Least time for one B4 call on these inputs: the table rows it scores
+    (``work["rows"]``, d elements each) and the graph ids of its valid
+    parents (``work["ids"]``, 4 B each), the queries and the seed and final
+    beams moved once, against 3 FP32 operations per scored element."""
+    table, _, qf, kv0, _ = a["args"]
+    d = qf.shape[1]
+    beams = 2 * kv0.numel() * 8
+    return bound_ms(3.0 * work["rows"] * d,
+                    work["rows"] * d * table.element_size() + work["ids"] * 4 + qf.numel() * 4 + beams)
+
+
+def atomic_segment_sum(values, labels, k: int, batched: bool = False) -> torch.Tensor:
+    """The build's label sums as the port added them before: ``index_add_``
+    (the batched form: over labels offset by ``k`` per batch, as
+    ``scatter_add_`` did), float atomics in a varying order on the card.
+    Timed against ``kmeans.segment_sum`` only."""
+    if batched:
+        B, n = labels.shape
+        flat = (labels.to(torch.int64) + k * torch.arange(B, device=labels.device)[:, None]).reshape(-1)
+        out = atomic_segment_sum(values.reshape((B * n,) + tuple(values.shape[2:])), flat, B * k)
+        return out.reshape((B, k) + tuple(values.shape[2:]))
+    out = torch.zeros((k,) + tuple(values.shape[1:]), dtype=torch.float32, device=values.device)
+    return out.index_add_(0, labels.to(torch.int64), values.to(torch.float32))
+
+
+def timed_build(build, sums=None):
+    """``(index, seconds)`` of ``build()``; with ``sums`` the three k-means
+    update sites (kmeans, kmeans_balanced, ivf_pq) use it for this build."""
+    from raft_tpu_torch.cluster import kmeans, kmeans_balanced
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    mods = (kmeans, kmeans_balanced, ivf_pq)
+    saved = [m.segment_sum for m in mods]
+    if sums is not None:
+        for m in mods:
+            m.segment_sum = sums
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = build()
+        torch.cuda.synchronize()
+        return index, time.perf_counter() - t0
+    finally:
+        for m, f in zip(mods, saved):
+            m.segment_sum = f
+
+
+def differing_fields(a, b, fields) -> list:
+    return [f for f in fields if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def check_deterministic(card, phase, name, build, fields) -> None:
+    """Build twice with the fixed-order sums and once with the atomic ones;
+    the two fixed-order builds must be equal in every field. Prints the
+    build seconds of both kinds."""
+    det = [timed_build(build), timed_build(build)]
+    _, atomic_s = timed_build(build, atomic_segment_sum)
+    diff = differing_fields(det[0][0], det[1][0], fields)
+    emit(card, phase=phase, metric="build_determinism", index=name,
+         fixed_order_build_s=[t for _, t in det], atomic_build_s=atomic_s,
+         slower_by=float(np.mean([t for _, t in det]) / atomic_s - 1.0),
+         fields_differing_between_fixed_order_builds=diff, max_list=[i.max_list for i, _ in det])
+    if diff:
+        raise AssertionError(f"{name} built twice from one seed differs in {diff}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -395,8 +525,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from raft_tpu_torch.core.resources import Resources
-    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
-    from raft_tpu_torch.ops import ivf_scan, pq_scan, rabitq_scan
+    from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import cagra_search, ivf_scan, pq_scan, rabitq_scan
     from raft_tpu_torch.serve import ServingEngine
     from raft_tpu_torch.stats.recall import neighborhood_recall
 
@@ -406,7 +536,7 @@ def main() -> int:
     emit(card, phase="device", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
     kernels = {"fused_list_topk": ivf_scan, "fused_pq_topk": pq_scan,
-               "fused_rabitq_topk": rabitq_scan}
+               "fused_rabitq_topk": rabitq_scan, "cagra_fused_search": cagra_search}
     os.makedirs("chiprun_out", exist_ok=True)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as ex:
@@ -468,7 +598,32 @@ def main() -> int:
         a = rabitq_args(index, Q_mid, mid_pq, ivf_pq.DistanceType[metric])
         for k in (10, 80):
             check("fused_rabitq_topk", run_rabitq, a, k, metric)
+    for deg in (16, 32):
+        cg = cagra.build(X_mid, cagra.CagraIndexParams(intermediate_graph_degree=2 * deg,
+                                                       graph_degree=deg, build_algo="ivf_pq"), res=res)
+        for table_dtype in ("float32", "bfloat16"):
+            for ip in (False, True):
+                for itopk, width in ((64, 1), (64, 4), (128, 8)):
+                    a = b4_args(cg, Q_mid, itopk, width, ip, table_dtype)
+                    rv, ri = run_b4(a, reference=True)
+                    kv, ki = run_b4(a)
+                    torch.cuda.synchronize()
+                    err = compare_beam(kv, ki, rv, ri)
+                    max_err["cagra_fused_search"] = max(max_err["cagra_fused_search"], err)
+                    emit(card, phase="kernel_vs_plain", kernel="cagra_fused_search", graph_degree=deg,
+                         metric="InnerProduct" if ip else "L2Expanded", table=table_dtype,
+                         itopk=itopk, width=width, iters=a["kw"]["iters"], max_abs_err=err,
+                         live_slots=float((ki >= 0).to(torch.float32).mean()))
+        del cg
     emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
+
+    # the build's determinism, on the mid-size set
+    check_deterministic(card, "determinism", "ivf_flat_65536",
+                        lambda: ivf_flat.build(X_mid, ivf_flat.IvfFlatIndexParams(n_lists=256), res=res),
+                        ("centers", "list_sizes", "list_indices", "list_data", "list_norms"))
+    check_deterministic(card, "determinism", "ivf_pq_65536",
+                        lambda: ivf_pq.build(X_mid, ivf_pq.IvfPqIndexParams(n_lists=256), res=res),
+                        ("centers", "pq_centers", "list_sizes", "list_indices", "codes", "rot_sqnorms"))
     if args.quick:
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
@@ -566,6 +721,18 @@ def main() -> int:
     emit(card, phase="ivf_pq", metric="build_s", value=time.perf_counter() - t0, n=n, d=d,
          n_lists=pq_index.n_lists, max_list=pq_index.max_list, pq_dim=pq_index.pq_dim,
          code_bytes_per_row=int(pq_index.codes.shape[2]), nibble=pq_index.additive)
+    # the same build again: equal in every field
+    again, again_s = timed_build(lambda: ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024), res=res))
+    _, atomic_s = timed_build(lambda: ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024), res=res),
+                              atomic_segment_sum)
+    diff = differing_fields(pq_index, again, ("centers", "pq_centers", "list_sizes", "list_indices",
+                                              "codes", "rot_sqnorms"))
+    emit(card, phase="ivf_pq", metric="build_determinism", rebuild_s=again_s,
+         atomic_sums_build_s=atomic_s, fields_differing=diff, max_list=[pq_index.max_list,
+                                                                        again.max_list])
+    if diff:
+        raise AssertionError(f"the 1M IVF-PQ index built twice from one seed differs in {diff}")
+    del again
     pq_params = ivf_pq.IvfPqSearchParams(n_probes=30)
     serve_pq = dataclasses.replace(pq_params, fused_qt=SERVE_QT_PQ)
     eng.register("sift1m_pq", "ivf_pq", pq_index, params=serve_pq, dataset=X_card)
@@ -656,12 +823,99 @@ def main() -> int:
          n_split_ms=b3["n_split_ms"], k=kk, n_qt=int(a["args"][5].shape[0]),
          valid_units=int((a["args"][6] > 0).sum()), unit_rows=int(a["args"][0].shape[1]))
 
+    del rq_index
+
+    # ---- phase 6: CAGRA at full width --------------------------------------
+    cagra_search.cagra_fused_search.launches = 0
+    pq_scan.fused_pq_topk.launches = 0
+    cg, build_s = timed_build(lambda: cagra.build(
+        X_card, cagra.CagraIndexParams(intermediate_graph_degree=32, graph_degree=16,
+                                       build_algo="ivf_pq"), res=res, pq_index=pq_index))
+    build_b2 = pq_scan.fused_pq_topk.launches
+    emit(card, phase="cagra", metric="build_s", value=build_s, stages_s=cg.build_seconds,
+         graph_degree=cg.graph_degree, self_search_b2_launches=build_b2,
+         empty_graph_slots=int((cg.graph < 0).sum()))
+    if build_b2 <= 0:
+        raise AssertionError("the CAGRA build's self-search never launched fused_pq_topk")
+    cp = cagra.CagraSearchParams(itopk_size=128, search_width=8, dedup="post",
+                                 init_sample=SERVE_INIT_SAMPLE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = cagra._fused_table(cg, cp.fused_table_dtype)
+    torch.cuda.synchronize()
+    emit(card, phase="cagra", metric="table_build_s", value=time.perf_counter() - t0,
+         table_bytes=table.numel() * table.element_size(), shape=list(table.shape))
+    mode_recall = {}
+    for mode in ("fused", "xla"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ids = cagra.search(cg, Qt, k, cp, mode=mode)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        mode_recall[mode] = neighborhood_recall(ids, gt_i)
+        emit(card, phase="cagra", metric="search_recall@10", mode=mode, value=mode_recall[mode],
+             qps=nq / secs, itopk=128, width=8, init_sample=cp.init_sample,
+             iters=cagra.derive_search_config(cp, k, n)[2])
+    if mode_recall["fused"] < mode_recall["xla"] - 0.01:
+        raise AssertionError(f"CAGRA fused recall {mode_recall['fused']} < xla {mode_recall['xla']} - 0.01")
+    for init_sample in (4096, 8192, 16384, 32768):
+        sp = dataclasses.replace(cp, init_sample=init_sample)
+        run = lambda: cagra.search(cg, Qt, k, sp, mode="fused")
+        _, ids = run()
+        emit(card, phase="cagra", metric="init_sample_sweep", init_sample=init_sample, mode="fused",
+             recall=neighborhood_recall(ids, gt_i), qps=nq / (cuda_ms(run, reps=2) / 1e3))
+    for itopk in (96, 128, 160):
+        sp = dataclasses.replace(cp, itopk_size=itopk)
+        run = lambda: cagra.search(cg, Qt, k, sp)
+        _, ids = run()
+        emit(card, phase="cagra", metric="itopk_sweep", itopk=itopk, mode="auto",
+             init_sample=sp.init_sample,
+             recall=neighborhood_recall(ids, gt_i), qps=nq / (cuda_ms(run, reps=2) / 1e3),
+             iters=cagra.derive_search_config(sp, k, n)[2])
+    for bq in (1, 10):
+        sp = cagra.plan_search_params(bq, k, n, cagra.CagraSearchParams(itopk_size=128, dedup="post"))
+        lat = []
+        for rep in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, ids = cagra.search(cg, Qt[rep * bq : (rep + 1) * bq], k, sp)
+            ids.cpu()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        _, ids = cagra.search(cg, Qt[:256], k, sp, query_batch=bq)
+        emit(card, phase="cagra", metric="latency_ms", batch=bq, mean_ms=float(np.mean(lat[1:])),
+             all_ms=lat, width=sp.search_width, init_sample=sp.init_sample,
+             recall_256_queries=neighborhood_recall(ids, gt_i[:256]))
+    eng.register("sift1m_cagra", "cagra", cg, params=cp)
+    eng.warmup("sift1m_cagra", k)
+    cagra_launches = serve_both_ways(card, eng, "sift1m_cagra", Q, sizes, starts, k, n, gt,
+                                     cagra_search.cagra_fused_search, "cagra", min_recall=0.80,
+                                     itopk=128, width=8)
+    emit(card, phase="cagra", metric="serve_launches", value=cagra_launches)
+    if args.profile:
+        profile_backlog(card, eng, "sift1m_cagra", Q, starts, sizes, k, "serve_cagra_backlog_trace.json")
+    # B4 at the serving path's shapes: one 128-row batch
+    a = b4_args(cg, Qt[:128], 128, 8, False, cp.fused_table_dtype, init_sample=cp.init_sample)
+    work = {}
+    rv, ri = run_b4(a, reference=True, work=work)
+    kv, ki = run_b4(a)
+    max_err["cagra_fused_search"] = max(max_err["cagra_fused_search"], compare_beam(kv, ki, rv, ri))
+    b4 = dict(ms=cuda_ms(lambda: run_b4(a), reps=20),
+              plain_ms=cuda_ms(lambda: run_b4(a, reference=True), reps=1))
+    b4["bound_ms"], b4["bound_by"] = b4_bound_ms(a, work)
+    full = 128 * a["kw"]["iters"] * 8 * cg.graph_degree
+    emit(card, phase="cagra", metric="cagra_fused_search_ms_serving_batch", value=b4["ms"],
+         bound_ms=b4["bound_ms"], bound_by=b4["bound_by"], plain_ms=b4["plain_ms"],
+         rows_scored=work["rows"], rows_at_most=full,
+         formula_bound_ms=bound_ms(3.0 * full * d, full * (d * 2 + 4)), iters=a["kw"]["iters"])
+
     rows = []
     for name, src, line, launches, t in (
             ("fused_list_topk", "ivf_scan.cu", "raft_tpu/ops/pallas/ivf_scan.py:321", flat_launches, b1),
             ("fused_pq_topk", "pq_scan.cu", "raft_tpu/ops/pallas/pq_scan.py:340", pq_launches, b2),
             ("fused_rabitq_topk", "rabitq_scan.cu", "raft_tpu/ops/pallas/rabitq_scan.py:260",
-             rq_launches, b3)):
+             rq_launches, b3),
+            ("cagra_fused_search", "cagra_search.cu", "raft_tpu/ops/pallas/cagra_search.py:272",
+             cagra_launches, b4)):
         rows.append({"name": name, "route": "cuda", "source": f"raft_tpu_torch/csrc/{src}",
                      "replaces": line, "launches": launches, "max_abs_err": max_err[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

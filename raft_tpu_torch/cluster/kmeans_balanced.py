@@ -32,6 +32,7 @@ from raft_tpu_torch.cluster.kmeans import (
     flash_norm_cache,
     kmeans_plus_plus,
     make_generator,
+    segment_sum,
 )
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.core.resources import Resources
@@ -55,12 +56,9 @@ class BalancedKMeansParams:
 
 
 def _segment_mean(X, labels, k: int, weights=None, min_count: float = 1.0):
-    lab = labels.to(torch.int64)
     w = torch.ones((X.shape[0],), dtype=torch.float32, device=X.device) if weights is None else weights
-    sums = torch.zeros((k, X.shape[1]), dtype=torch.float32, device=X.device)
-    sums.index_add_(0, lab, X * w[:, None] if weights is not None else X)
-    counts = torch.zeros((k,), dtype=torch.float32, device=X.device)
-    counts.index_add_(0, lab, w)
+    sums = segment_sum(X * w[:, None] if weights is not None else X, labels, k)
+    counts = segment_sum(w, labels, k)
     return sums / torch.clamp(counts[:, None], min=min_count), counts
 
 
@@ -75,6 +73,26 @@ def _weighted_lloyd(X, weights, init_centers, *, k: int, metric, n_iters: int):
     return centers
 
 
+def draw_proportional(gen: torch.Generator, p, m: int) -> torch.Tensor:
+    """``m`` indices drawn with replacement in proportion to ``p`` (> 0,
+    finite) by inverse CDF over exact int64 prefix sums: ``p`` as int64
+    multiples of ``2^-e`` (the largest ``e`` with ``sum(p) < 2^52``), a
+    uniform integer below the total, a binary search. Integer sums come out
+    the same in any order, so the draws are the same on every run;
+    ``torch.multinomial`` on the card draws against a float prefix sum
+    whose last bits change from run to run. The uniform integer is a
+    53-bit draw scaled to the total: ``torch.randint`` below a total that
+    is not a power of two reduces a 64-bit draw modulo it, which favours
+    small integers by up to 25 % when the total is near ``2^62``."""
+    pf = p.to(torch.float64)
+    e = min(1000, 52 - math.ceil(math.log2(float(torch.sum(pf)))))
+    cdf = torch.cumsum(torch.round(pf * 2.0 ** e).to(torch.int64), dim=0)
+    total = int(cdf[-1])
+    u = torch.randint(0, 2 ** 53, (m,), generator=gen, device=p.device, dtype=torch.int64)
+    t = torch.clamp(torch.floor(u.to(torch.float64) * (total / 2.0 ** 53)).to(torch.int64), max=total - 1)
+    return torch.searchsorted(cdf, t, right=True)
+
+
 def _adjust_centers(gen, X, centers, labels, counts, threshold: float):
     """Re-seed under-populated clusters toward random data points drawn in
     proportion to the population of the point's cluster."""
@@ -82,7 +100,7 @@ def _adjust_centers(gen, X, centers, labels, counts, threshold: float):
     avg = X.shape[0] / k
     small = counts < (avg * threshold)
     p = torch.clamp(counts[labels.to(torch.int64)], min=1e-9)
-    idx = torch.multinomial(p, k, replacement=True, generator=gen)
+    idx = draw_proportional(gen, p, k)
     blended = (centers * _ADJUST_WEIGHT + X[idx]) / (_ADJUST_WEIGHT + 1.0)
     return torch.where(small[:, None], blended, centers), int(small.sum())
 

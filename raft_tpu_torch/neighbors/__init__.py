@@ -1,1 +1,1 @@
-"""Index families: brute force, IVF-Flat, refine."""
+"""Index families: brute force, IVF-Flat, IVF-PQ, CAGRA (with NN-descent), refine."""

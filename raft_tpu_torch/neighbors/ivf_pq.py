@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.cluster import kmeans_balanced
-from raft_tpu_torch.cluster.kmeans import make_generator
+from raft_tpu_torch.cluster.kmeans import make_generator, segment_sum
 from raft_tpu_torch.cluster.kmeans_balanced import BalancedKMeansParams
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.bitset import Bitset
@@ -291,12 +291,8 @@ def _segment_sums(X, labels, weights, k: int) -> Tuple[torch.Tensor, torch.Tenso
     """Per batch, weighted sums and weights of the rows of each label:
     ``X [B, n, d]``, ``labels [B, n]``, ``weights [B, n]`` ->
     ``([B, k, d], [B, k])``."""
-    B, _, d = X.shape
-    sums = torch.zeros((B, k, d), dtype=torch.float32, device=X.device)
-    sums.scatter_add_(1, labels[:, :, None].expand(-1, -1, d), X * weights[:, :, None])
-    counts = torch.zeros((B, k), dtype=torch.float32, device=X.device)
-    counts.scatter_add_(1, labels, weights)
-    return sums, counts
+    sums = segment_sum(X * weights[:, :, None], labels, k, batched=True)
+    return sums, segment_sum(weights, labels, k, batched=True)
 
 
 def _batched_lloyd(X, mask, init, *, k: int, n_iters: int) -> torch.Tensor:

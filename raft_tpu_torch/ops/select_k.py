@@ -63,6 +63,19 @@ def select_k(
     return vals, pos.to(torch.int32)
 
 
+def merge_parts(
+    part_values: torch.Tensor,
+    part_indices: torch.Tensor,
+    k: int,
+    select_min: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge per-part top-k lists ``[batch, n_parts * k_part]`` (each entry
+    carrying a global index) into one top-k (``knn_merge_parts``)."""
+    expects(tuple(part_values.shape) == tuple(part_indices.shape),
+            "merge_parts values/indices shape mismatch")
+    return select_k(part_values, k, select_min=select_min, indices=part_indices)
+
+
 def running_merge(
     acc_values: torch.Tensor,
     acc_indices: torch.Tensor,
@@ -76,6 +89,57 @@ def running_merge(
     vals = torch.cat([acc_values, new_values], dim=1)
     idx = torch.cat([acc_indices, new_indices], dim=1)
     return select_k(vals, k, select_min=select_min, indices=idx)
+
+
+def running_merge_unique(
+    acc_values: torch.Tensor,
+    acc_indices: torch.Tensor,
+    new_values: torch.Tensor,
+    new_indices: torch.Tensor,
+    select_min: bool = True,
+    acc_flags: Optional[torch.Tensor] = None,
+    new_flags: Optional[torch.Tensor] = None,
+):
+    """:func:`running_merge` with per-row id deduplication (the visited
+    hashmap of the reference's graph searches, as a sort and an adjacent
+    compare). Negative ids are padding. Assumes equal ids carry equal
+    values.
+
+    With ``acc_flags`` a boolean flag lane (CAGRA's "visited", NN-descent's
+    "already sampled") rides through the merge: the entries are sorted by
+    the composite key ``id * 2 + (1 - flag)`` (stable), so on a duplicate id
+    the flagged copy survives, and a third tensor, the flags, is returned.
+    Then ``select_k`` keeps the lower column on value ties."""
+    k = acc_values.shape[1]
+    vals = torch.cat([acc_values, new_values], dim=1)
+    ids = torch.cat([acc_indices, new_indices], dim=1)
+    worst = worst_value(vals.dtype, select_min)
+    vals = torch.where(ids < 0, torch.full_like(vals, worst), vals)
+    with_flags = acc_flags is not None
+    if with_flags:
+        if new_flags is None:
+            new_flags = torch.zeros(new_indices.shape, dtype=torch.bool, device=ids.device)
+        flg = torch.cat([acc_flags, new_flags], dim=1)
+        composite = ids.to(torch.int64) * 2 + (1 - flg.to(torch.int64))
+        composite = torch.where(ids < 0, torch.full_like(composite, torch.iinfo(torch.int32).max),
+                                composite)
+        order = torch.argsort(composite, dim=1, stable=True)
+        flg_s = torch.gather(flg, 1, order)
+    else:
+        order = torch.argsort(ids, dim=1, stable=True)
+    ids_s = torch.gather(ids, 1, order)
+    vals_s = torch.gather(vals, 1, order)
+    prev = torch.cat([torch.full_like(ids_s[:, :1], -2), ids_s[:, :-1]], dim=1)
+    dup = (ids_s == prev) & (ids_s >= 0)
+    vals_s = torch.where(dup, torch.full_like(vals_s, worst), vals_s)
+    out_v, pos = select_k(vals_s, k, select_min=select_min)
+    pos = pos.to(torch.int64)
+    out_i = torch.gather(ids_s, 1, pos)
+    # slots that selected a sentinel (all-invalid row tails) report id -1
+    out_i = torch.where(out_v == worst, torch.full_like(out_i, -1), out_i)
+    if with_flags:
+        return out_v, out_i, torch.gather(flg_s, 1, pos)
+    return out_v, out_i
 
 
 def worst_value(dtype, select_min: bool = True):

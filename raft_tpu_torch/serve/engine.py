@@ -11,7 +11,7 @@ engine's device, un-padded, and every request's future completes with a
 :class:`ServeResult`. The engine is synchronous: :meth:`~ServingEngine.step`
 processes at most one micro-batch on the caller's thread.
 
-It serves ``brute_force``, ``ivf_flat`` and ``ivf_pq`` indexes. The JAX
+It serves ``brute_force``, ``ivf_flat``, ``ivf_pq`` and ``cagra`` indexes. The JAX
 engine's observability, planner, robustness, tiering, mutable-index and
 replica hooks are not ported yet.
 """
@@ -37,7 +37,7 @@ from raft_tpu_torch.serve.bucketing import (
 )
 
 #: algo name -> default dispatch mode at registration
-_DEFAULT_MODES = {"brute_force": "exact", "ivf_flat": "auto", "ivf_pq": "auto"}
+_DEFAULT_MODES = {"brute_force": "exact", "ivf_flat": "auto", "ivf_pq": "auto", "cagra": "auto"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +91,7 @@ class ServingEngine:
     def register(self, index_id: str, algo: str, index, *, params=None,
                  mode: Optional[str] = None, dataset=None, **search_kwargs) -> None:
         """Register ``index`` (``algo`` = ``brute_force`` | ``ivf_flat`` |
-        ``ivf_pq``). ``params``/``mode``/``search_kwargs`` are pinned at
+        ``ivf_pq`` | ``cagra``). ``params``/``mode``/``search_kwargs`` are pinned at
         registration; ``dataset`` enables integrated refine (for ``ivf_pq``
         at the params' ``refine_ratio``, 8 by default)."""
         expects(algo in _DEFAULT_MODES, "unknown serving algo %r (want one of %s)",
@@ -185,12 +185,15 @@ class ServingEngine:
         return self._indexes[index_id]
 
     def _build_program(self, reg: _Registration, bucket: int, k: int) -> Callable:
-        from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+        from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
 
         kw = reg.search_kwargs
         if reg.algo == "brute_force":
             return lambda q: brute_force.search(reg.index, q, k, query_batch=bucket,
                                                 dataset=reg.dataset, **kw)
+        if reg.algo == "cagra":
+            return lambda q: cagra.search(reg.index, q, k, reg.params, query_batch=bucket,
+                                          mode=reg.mode, **kw)
         algo = ivf_flat if reg.algo == "ivf_flat" else ivf_pq
         return lambda q: algo.search(reg.index, q, k, reg.params, query_batch=bucket,
                                      mode=reg.mode, dataset=reg.dataset, **kw)
