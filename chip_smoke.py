@@ -44,12 +44,30 @@ Phases, in order; any failure exits non-zero:
    on all 10,000 queries, an itopk sweep of 96/128/160, batch-1 and
    batch-10 latency through ``plan_search_params``, served through
    ``ServingEngine`` both ways; B4 at the serving shape against its plain
-   version and its bound.
+   version and its bound;
+7. sharded search at full width over ``make_mesh(["cuda:0"] * 4)``, four
+   virtual shards on one card (a peer copy between them stays inside device
+   memory): ``sharded_ivf_flat_search`` on phase 3's index (256 lists a
+   shard, ``n_probes=20``) over the 10,000 queries in 1,024-row batches with
+   the ring (B6), the scan ring (B7) and the gather merge, bit-equal, with
+   recall against exact and against the single-device ``search(mode=
+   "scan")``; served as ``sharded_ivf_flat`` through ``ServingEngine`` both
+   ways; the per-shard scan at 80 candidates into ``scan_ring_topk(k=10)``
+   (B7) against the gather of the same tiles; ``sharded_ivf_pq_lists_search``
+   on phase 4's index and ``sharded_knn`` on the 1M rows, ring against
+   gather; B5-B7 timed at the served (128-row) and 1,024-row shapes.
+
+Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
+256, with ties, signed zeros, padding and ``inf``), B6 ``fused_ring_topk``
+(virtual meshes of 2, 3, 4 and 8 shards, 128 and 1,000 queries, one shard
+demoted) and B7 ``fused_scan_ring_topk`` (tiles of k, 3k, 8k and 8k + 3
+columns) against their plain versions and the gather merge: same ids, same
+value bits.
 
 Each kernel's launch count is zeroed just before its path runs (phases
-3-6) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
-adds torch.profiler traces of the IVF-Flat, IVF-PQ and CAGRA serving
-backlogs.
+3-7) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
+adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
+IVF-Flat serving backlogs.
 The last line is ``{"ok": true, "device": {...}}``, after the
 ``{"kernels": [...]}`` line and the card's name and power limit. Other
 numbers print one JSON object per line with the card's name and power
@@ -457,6 +475,73 @@ def b4_bound_ms(a, work) -> tuple:
                     work["rows"] * d * table.element_size() + work["ids"] * 4 + qf.numel() * 4 + beams)
 
 
+def fold_tiles(rng, rows: int, w: int, select_min: bool, parity: int):
+    """A B5 input tile ``(key, pos, val, id)`` of ``[rows, w]`` on the card,
+    unsorted: integer values (ties), signed zeros, ``±inf`` with real ids,
+    padding entries; positions of one ``parity`` (unique across two tiles)."""
+    v = rng.integers(-3, 4, (rows, w)).astype(np.float32)
+    z = rng.random((rows, w)) < 0.2
+    v[z] = np.where(rng.random(z.sum()) < 0.5, np.float32(-0.0), np.float32(0.0))
+    v[rng.random((rows, w)) < 0.05] = np.inf
+    v[rng.random((rows, w)) < 0.05] = -np.inf
+    pos = (2 * rng.permutation(rows * w * 2)[: rows * w] + parity).reshape(rows, w).astype(np.int32)
+    ids = pos + 7
+    pad = rng.random((rows, w)) < 0.1
+    v[pad] = np.inf if select_min else -np.inf
+    pos[pad] = 2 ** 31 - 1
+    ids[pad] = -1
+    key = v if select_min else -v
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in (key, pos, v, ids))
+
+
+def shard_tiles(rng, n: int, nq: int, kc: int, select_min: bool, demote=(), sort=True):
+    """Per-shard candidate tiles on the card, as a local top-k gives them
+    (sorted best first unless ``sort=False``): integer values (cross-shard
+    ties), ``±inf`` with real ids; ``demote``d shards are ``(worst, -1)``."""
+    v = rng.integers(-6, 7, (n, nq, kc)).astype(np.float32)
+    v[rng.random((n, nq, kc)) < 0.03] = np.inf
+    v[rng.random((n, nq, kc)) < 0.03] = -np.inf
+    if sort:
+        v = np.sort(v, axis=2)
+        if not select_min:
+            v = v[..., ::-1]
+    i = (np.arange(n)[:, None, None] * 1_000_000 + np.arange(nq * kc).reshape(1, nq, kc)).astype(np.int32)
+    for s in demote:
+        v[s] = np.inf if select_min else -np.inf
+        i[s] = -1
+    return ([torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in v],
+            [torch.from_numpy(np.ascontiguousarray(x)).cuda() for x in i])
+
+
+def exact_err(what: str, got, ref) -> float:
+    """Every lane of ``got`` equal to ``ref``'s bit for bit (ids, positions,
+    value bits); returns the values' max abs error (0.0)."""
+    err = 0.0
+    for g, r in zip(got, ref):
+        same = torch.equal(g.view(torch.int32), r.view(torch.int32)) if g.is_floating_point() \
+            else torch.equal(g, r)
+        if not same:
+            raise AssertionError(f"{what}: {(g != r).sum()} of {g.numel()} entries differ")
+        if g.is_floating_point():
+            fin = torch.isfinite(r)
+            if fin.any():
+                err = max(err, float((g[fin] - r[fin]).abs().max()))
+    return err
+
+
+def ring_err(what: str, got, ref) -> float:
+    """Every shard's ``(vals, ids)`` of ``got`` equal to ``ref``'s."""
+    return max(exact_err(f"{what} shard {r}", (gv, gi), (rv, ri))
+               for r, (gv, gi, rv, ri) in enumerate(zip(*got, *ref)))
+
+
+def ring_bound_ms(n: int, nq: int, kc: int, k: int) -> tuple:
+    """Least time for one ring merge: every shard's ``[nq, kc]`` (val, id)
+    inputs read once and its replicated ``[nq, k]`` output written once;
+    bound by bytes (the folds' compares are a few per byte)."""
+    return bound_ms(0.0, n * nq * (kc + k) * 8.0)
+
+
 def atomic_segment_sum(values, labels, k: int, batched: bool = False) -> torch.Tensor:
     """The build's label sums as the port added them before: ``index_add_``
     (the batched form: over labels offset by ``k`` per batch, as
@@ -527,6 +612,8 @@ def main() -> int:
     from raft_tpu_torch.core.resources import Resources
     from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
     from raft_tpu_torch.ops import cagra_search, ivf_scan, pq_scan, rabitq_scan
+    from raft_tpu_torch.ops import ring_topk as rt
+    from raft_tpu_torch.parallel import make_mesh
     from raft_tpu_torch.serve import ServingEngine
     from raft_tpu_torch.stats.recall import neighborhood_recall
 
@@ -536,7 +623,8 @@ def main() -> int:
     emit(card, phase="device", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
     kernels = {"fused_list_topk": ivf_scan, "fused_pq_topk": pq_scan,
-               "fused_rabitq_topk": rabitq_scan, "cagra_fused_search": cagra_search}
+               "fused_rabitq_topk": rabitq_scan, "cagra_fused_search": cagra_search,
+               "ring_topk": rt}
     os.makedirs("chiprun_out", exist_ok=True)
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as ex:
@@ -550,7 +638,12 @@ def main() -> int:
              ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
     res = Resources(device="cuda", seed=args.seed)
     rng = np.random.default_rng(args.seed)
-    max_err = {name: 0.0 for name in kernels}
+    # the ring checks draw from their own stream, so phases 3-6 see the data
+    # and requests they saw before the ring was added
+    ring_rng = np.random.default_rng([args.seed, 7])
+    max_err = {name: 0.0 for name in ("fused_list_topk", "fused_pq_topk", "fused_rabitq_topk",
+                                       "cagra_fused_search", "hop_merge", "fused_ring_topk",
+                                       "fused_scan_ring_topk")}
 
     def check(name, run, a, k, metric_name, **tags):
         rv, rs = run(a, k, reference=True)
@@ -615,6 +708,51 @@ def main() -> int:
                          itopk=itopk, width=width, iters=a["kw"]["iters"], max_abs_err=err,
                          live_slots=float((ki >= 0).to(torch.float32).mean()))
         del cg
+    # B5: the fold, against its plain version on the card
+    for rows in (32, 2560):
+        for w in (10, 80, 256):
+            for select_min in (True, False):
+                a = fold_tiles(ring_rng, rows, w, select_min, 0)
+                b = fold_tiles(ring_rng, rows, w, select_min, 1)
+                got = rt.hop_merge(a, b)
+                torch.cuda.synchronize()
+                err = exact_err(f"hop_merge rows {rows} w {w}", got, rt.hop_merge_reference(a, b))
+                max_err["hop_merge"] = max(max_err["hop_merge"], err)
+                emit(card, phase="kernel_vs_plain", kernel="hop_merge", rows=rows, w=w,
+                     select_min=select_min, max_abs_err=err)
+    # B6: the ring over virtual meshes, one shard demoted
+    for n in (2, 3, 4, 8):
+        ring_mesh = make_mesh(["cuda:0"] * n)
+        for nq_r in (128, 1000):
+            for select_min in (True, False):
+                vs, is_ = shard_tiles(ring_rng, n, nq_r, 10, select_min, demote=(n // 2,))
+                got = rt.fused_ring_topk(ring_mesh, vs, is_, 10, select_min)
+                torch.cuda.synchronize()
+                what = f"fused_ring_topk n {n} nq {nq_r} select_min {select_min}"
+                err = max(ring_err(what, got, rt.ring_topk_reference(vs, is_, 10, select_min, ring_mesh)),
+                          ring_err(what + " vs gather", got,
+                                   rt.gather_merge(ring_mesh, vs, is_, 10, select_min)))
+                max_err["fused_ring_topk"] = max(max_err["fused_ring_topk"], err)
+                emit(card, phase="kernel_vs_plain", kernel="fused_ring_topk", n_shards=n, nq=nq_r,
+                     k=10, select_min=select_min, demoted=[n // 2], max_abs_err=err,
+                     bytes_per_query=rt.fused_ring_topk.last_bytes["per_query"],
+                     wire_model_bytes_per_query=rt.fused_ring_topk.last_bytes["model_per_query"])
+    # B7: the scan ring on wide tiles (and the scan fold alone on one shard)
+    for n, kc in ((4, 10), (4, 30), (4, 80), (4, 83), (1, 80)):
+        ring_mesh = make_mesh(["cuda:0"] * n)
+        for select_min in (True, False):
+            vs, is_ = shard_tiles(ring_rng, n, 1000, kc, select_min, demote=(1,) if n > 1 else (),
+                                  sort=False)
+            got = rt.fused_scan_ring_topk(ring_mesh, vs, is_, 10, select_min)
+            torch.cuda.synchronize()
+            what = f"fused_scan_ring_topk n {n} kc {kc} select_min {select_min}"
+            err = max(ring_err(what, got, rt.ring_topk_reference(vs, is_, 10, select_min, ring_mesh,
+                                                                  scan_fold=True)),
+                      ring_err(what + " vs gather", got,
+                               rt.gather_merge(ring_mesh, vs, is_, 10, select_min)))
+            max_err["fused_scan_ring_topk"] = max(max_err["fused_scan_ring_topk"], err)
+            emit(card, phase="kernel_vs_plain", kernel="fused_scan_ring_topk", n_shards=n, nq=1000,
+                 kc=kc, k=10, select_min=select_min, max_abs_err=err)
     emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
     # the build's determinism, on the mid-size set
@@ -908,6 +1046,173 @@ def main() -> int:
          rows_scored=work["rows"], rows_at_most=full,
          formula_bound_ms=bound_ms(3.0 * full * d, full * (d * 2 + 4)), iters=a["kw"]["iters"])
 
+    # ---- phase 7: sharded search over four virtual shards ------------------
+    from raft_tpu_torch.parallel import (sharded_ivf_flat_search, sharded_ivf_pq_lists_search,
+                                         sharded_knn)
+
+    mesh = make_mesh(["cuda:0"] * 4)
+    print(repr(mesh), flush=True)
+    emit(card, phase="sharded", metric="mesh", shards=mesh.size, devices=[str(x) for x in mesh.devices],
+         virtual=mesh.virtual)
+    ring_kernels = (rt.hop_merge, rt.fused_ring_topk, rt.fused_scan_ring_topk)
+    for f in ring_kernels:
+        f.launches = 0
+    qb = 1024
+
+    def batched(fn):
+        outs = [fn(Qt[s : s + qb]) for s in range(0, nq, qb)]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    sharded = {}
+    for mode in ("ring", "fused_ring", "gather"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded[mode] = batched(lambda qc: sharded_ivf_flat_search(mesh, index, qc, k, params,
+                                                                   merge_mode=mode))
+        torch.cuda.synchronize()
+        emit(card, phase="sharded", metric="sharded_ivf_flat_qps", merge_mode=mode,
+             value=nq / (time.perf_counter() - t0), query_batch=qb, n_probes=20, shards=mesh.size,
+             recall=neighborhood_recall(sharded[mode][1], gt_i))
+    for mode in ("fused_ring", "gather"):
+        exact_err(f"sharded IVF-Flat {mode} vs ring", sharded[mode], sharded["ring"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, scan_ids = ivf_flat.search(index, Qt, k, params, mode="scan")
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    sharded_recall = neighborhood_recall(sharded["ring"][1], gt_i)
+    scan_recall = neighborhood_recall(scan_ids, gt_i)
+    emit(card, phase="sharded", metric="sharded_ivf_flat_recall@10", value=sharded_recall,
+         single_device_scan_recall=scan_recall, single_device_scan_qps=nq / scan_s,
+         ids_equal_to_single_device_scan=float((scan_ids == sharded["ring"][1]).to(torch.float32).mean()))
+    if sharded_recall < 0.90 or abs(sharded_recall - scan_recall) > 0.001:
+        raise AssertionError(f"sharded IVF-Flat recall {sharded_recall} (single-device scan "
+                             f"{scan_recall}): below 0.90 or more than 0.001 apart")
+
+    # served: the sharded registration, ring exchange, both ways
+    eng.register("sift1m_sharded", "sharded_ivf_flat", index, params=params, mesh=mesh,
+                 merge_mode="ring")
+    eng.warmup("sift1m_sharded", k)
+    before = rt.fused_ring_topk.launches
+    served_b6 = serve_both_ways(card, eng, "sift1m_sharded", Q, sizes, starts, k, n, gt,
+                                rt.fused_ring_topk, "sharded", n_probes=20, shards=mesh.size,
+                                merge_mode="ring")
+    rt.fused_ring_topk.launches = before + served_b6
+    if args.profile:
+        counts = [f.launches for f in ring_kernels]
+        profile_backlog(card, eng, "sift1m_sharded", Q, starts, sizes, k,
+                        "serve_sharded_backlog_trace.json")
+        for f, c in zip(ring_kernels, counts):
+            f.launches = c
+    emit(card, phase="sharded", metric="serve_launches", value=served_b6,
+         bytes_per_query=rt.fused_ring_topk.last_bytes["per_query"],
+         wire_model_bytes_per_query=rt.fused_ring_topk.last_bytes["model_per_query"])
+
+    # B7 on the path: the per-shard scan at 80 candidates into scan_ring_topk(k)
+    kk = 8 * k
+    l_local = index.n_lists // mesh.size
+    g_local = ivf_flat.scan_chunk_lists(l_local, index.max_list)
+
+    def shard_scan(qc, width):
+        probed = ivf_flat.probe_mask(index.centers, qc, params.n_probes, index.metric)
+        vs, is_ = [], []
+        for r in range(mesh.size):
+            sl = slice(r * l_local, (r + 1) * l_local)
+            v, i = ivf_flat.flat_scan_core(index.list_data[sl], index.list_indices[sl],
+                                           index.list_norms[sl], qc, probed[:, sl], None, k=width,
+                                           metric=index.metric, chunk_lists=g_local)
+            vs.append(v)
+            is_.append(i)
+        return vs, is_
+
+    b567 = {}
+    for rows_q in (128, qb):
+        qc = Qt[:rows_q]
+        vs80, is80 = shard_scan(qc, kk)
+        vs10, is10 = shard_scan(qc, k)
+        got = rt.scan_ring_topk(mesh, vs80, is80, k)
+        torch.cuda.synchronize()
+        what = f"scan ring at {rows_q} queries"
+        max_err["fused_scan_ring_topk"] = max(
+            max_err["fused_scan_ring_topk"],
+            ring_err(what + " vs gather", got, rt.gather_merge(mesh, vs80, is80, k, True)),
+            ring_err(what, got, rt.ring_topk_reference(vs80, is80, k, True, mesh, scan_fold=True)))
+        # the comparisons and timings below stay out of the path's launch counts
+        counts = [f.launches for f in ring_kernels]
+        got = rt.ring_topk(mesh, vs10, is10, k)
+        torch.cuda.synchronize()
+        max_err["fused_ring_topk"] = max(
+            max_err["fused_ring_topk"],
+            ring_err(f"ring at {rows_q} queries vs gather", got, rt.gather_merge(mesh, vs10, is10, k, True)),
+            ring_err(f"ring at {rows_q} queries", got, rt.ring_topk_reference(vs10, is10, k, True, mesh)))
+        # B5 at one hop's shape: B = rows / shards rows of k candidates
+        B = -(-rows_q // mesh.size)
+        fa, fb = fold_tiles(ring_rng, B, k, True, 0), fold_tiles(ring_rng, B, k, True, 1)
+        max_err["hop_merge"] = max(max_err["hop_merge"], exact_err(
+            f"hop_merge at {B} rows", rt.hop_merge(fa, fb), rt.hop_merge_reference(fa, fb)))
+        t = {
+            "hop_merge": dict(ms=cuda_ms(lambda: rt.hop_merge(fa, fb), reps=50),
+                              plain_ms=cuda_ms(lambda: rt.hop_merge_reference(fa, fb), reps=5),
+                              bound=bound_ms(0.0, 3 * B * k * 16.0), rows=B, w=k),
+            "fused_ring_topk": dict(
+                ms=cuda_ms(lambda: rt.fused_ring_topk(mesh, vs10, is10, k), reps=20),
+                plain_ms=cuda_ms(lambda: rt.ring_topk_reference(vs10, is10, k, True, mesh), reps=3),
+                gather_ms=cuda_ms(lambda: rt.gather_merge(mesh, vs10, is10, k, True), reps=20),
+                bound=ring_bound_ms(mesh.size, rows_q, k, k), nq=rows_q, kc=k),
+            "fused_scan_ring_topk": dict(
+                ms=cuda_ms(lambda: rt.fused_scan_ring_topk(mesh, vs80, is80, k), reps=20),
+                plain_ms=cuda_ms(lambda: rt.ring_topk_reference(vs80, is80, k, True, mesh,
+                                                                scan_fold=True), reps=3),
+                gather_ms=cuda_ms(lambda: rt.gather_merge(mesh, vs80, is80, k, True), reps=20),
+                bound=ring_bound_ms(mesh.size, rows_q, kk, k), nq=rows_q, kc=kk),
+        }
+        for f, c in zip(ring_kernels, counts):
+            f.launches = c
+        for name, row in t.items():
+            bms, bby = row.pop("bound")
+            row.update(bound_ms=bms, bound_by=bby)
+            emit(card, phase="sharded", metric=f"{name}_ms", queries=rows_q, shards=mesh.size, **row)
+        b567[rows_q] = t
+
+    # lists-sharded IVF-PQ on phase 4's index: ring against gather
+    pq_sp = ivf_pq.IvfPqSearchParams(n_probes=30)
+    pq_out = {}
+    for mode in ("ring", "gather"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [sharded_ivf_pq_lists_search(mesh, pq_index, Qt[s : s + qb], k, pq_sp, merge_mode=mode)
+                for s in range(0, 2 * qb, qb)]
+        torch.cuda.synchronize()
+        pq_out[mode] = (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+        emit(card, phase="sharded", metric="sharded_ivf_pq_lists", merge_mode=mode,
+             qps=2 * qb / (time.perf_counter() - t0), n_probes=30, queries=2 * qb,
+             recall_no_refine=neighborhood_recall(pq_out[mode][1], gt_i[: 2 * qb]))
+    exact_err("sharded IVF-PQ gather vs ring", pq_out["gather"], pq_out["ring"])
+
+    # row-sharded exact kNN on the 1M rows: ring against gather, ids against brute force
+    knn_out = {}
+    for mode in ("ring", "gather"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        knn_out[mode] = sharded_knn(mesh, X_card, Qt[:qb], k, metric="sqeuclidean", merge_mode=mode)
+        torch.cuda.synchronize()
+        emit(card, phase="sharded", metric="sharded_knn", merge_mode=mode,
+             seconds=time.perf_counter() - t0, queries=qb, rows=n)
+    exact_err("sharded kNN gather vs ring", knn_out["gather"], knn_out["ring"])
+    knn_same = float((knn_out["ring"][1].cpu() == gt[:qb]).to(torch.float32).mean())
+    knn_recall = neighborhood_recall(knn_out["ring"][1], gt_i[:qb])
+    emit(card, phase="sharded", metric="sharded_knn_vs_brute_force", ids_equal=knn_same,
+         recall=knn_recall)
+    if knn_recall < 0.999:
+        raise AssertionError(f"sharded kNN recall against brute force {knn_recall} < 0.999")
+
+    phase7 = {f.__name__: f.launches for f in ring_kernels}
+    emit(card, phase="sharded", metric="launches", value=phase7)
+    for name, c in phase7.items():
+        if c <= 0:
+            raise AssertionError(f"phase 7 never launched {name}")
+    emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
+
     rows = []
     for name, src, line, launches, t in (
             ("fused_list_topk", "ivf_scan.cu", "raft_tpu/ops/pallas/ivf_scan.py:321", flat_launches, b1),
@@ -915,7 +1220,13 @@ def main() -> int:
             ("fused_rabitq_topk", "rabitq_scan.cu", "raft_tpu/ops/pallas/rabitq_scan.py:260",
              rq_launches, b3),
             ("cagra_fused_search", "cagra_search.cu", "raft_tpu/ops/pallas/cagra_search.py:272",
-             cagra_launches, b4)):
+             cagra_launches, b4),
+            ("hop_merge", "ring_topk.cu", "raft_tpu/ops/pallas/ring_topk.py:328",
+             phase7["hop_merge"], b567[128]["hop_merge"]),
+            ("fused_ring_topk", "ring_topk.cu", "raft_tpu/ops/pallas/ring_topk.py:505",
+             phase7["fused_ring_topk"], b567[128]["fused_ring_topk"]),
+            ("fused_scan_ring_topk", "ring_topk.cu", "raft_tpu/ops/pallas/ring_topk.py:530",
+             phase7["fused_scan_ring_topk"], b567[128]["fused_scan_ring_topk"])):
         rows.append({"name": name, "route": "cuda", "source": f"raft_tpu_torch/csrc/{src}",
                      "replaces": line, "launches": launches, "max_abs_err": max_err[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

@@ -23,34 +23,48 @@ from raft_tpu_torch.utils.math import round_up
 
 
 def scan_mode_not_ported(algo: str) -> None:
-    """Raise for ``mode="scan"``: the JAX package's dense scan over list
-    chunks is not ported yet."""
+    """Raise for a ``mode="scan"`` the port does not have yet."""
     fail("%s: mode='scan' (the dense scan over all lists) is not ported yet; use "
          "mode='fused', 'probe' or 'auto'", algo)
 
 
-def coarse_scores(centers, qf, metric) -> torch.Tensor:
-    """[nq, n_lists] coarse scores, smaller = better. For cosine, ``qf``
-    must already be unit-normalized."""
-    q_dot_c = qf @ centers.T
+def coarse_from_dots(q_dot_c, centers, metric) -> torch.Tensor:
+    """[nq, n_lists] coarse scores (smaller = better) from ``q @ centers.T``."""
     if metric == DistanceType.InnerProduct:
         return -q_dot_c
     c_norm = torch.sum(centers * centers, dim=1)
     return c_norm[None, :] - 2.0 * q_dot_c
 
 
+def coarse_scores(centers, qf, metric) -> torch.Tensor:
+    """[nq, n_lists] coarse scores, smaller = better. For cosine, ``qf``
+    must already be unit-normalized."""
+    return coarse_from_dots(qf @ centers.T, centers, metric)
+
+
+def probed_from_coarse(coarse, n_probes: int) -> torch.Tensor:
+    """``[nq, n_lists]`` bool: the ``n_probes`` best lists of each row."""
+    nq, n_lists = coarse.shape
+    if n_probes >= n_lists:
+        return torch.ones((nq, n_lists), dtype=torch.bool, device=coarse.device)
+    _, probes = select_k(coarse, n_probes, select_min=True)
+    probed = torch.zeros((nq, n_lists), dtype=torch.bool, device=coarse.device)
+    return probed.scatter_(1, probes.to(torch.int64), True)
+
+
+def valid_slots(ids, filter_bits) -> torch.Tensor:
+    """Slots that hold a row (id >= 0) kept by the prefilter's bits."""
+    valid = ids >= 0
+    if filter_bits is not None:
+        cid = torch.clamp(ids, min=0).to(torch.int64)
+        valid = valid & (((filter_bits[cid // 32] >> (cid % 32).to(torch.int32)) & 1) == 1)
+    return valid
+
+
 def probe_selection(centers, qf, n_probes: int, metric) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(coarse [nq, n_lists], probed [nq, n_lists] bool)``."""
-    nq = qf.shape[0]
-    n_lists = centers.shape[0]
     coarse = coarse_scores(centers, qf, metric)
-    if n_probes < n_lists:
-        _, probes = select_k(coarse, n_probes, select_min=True)
-        probed = torch.zeros((nq, n_lists), dtype=torch.bool, device=qf.device)
-        probed.scatter_(1, probes.to(torch.int64), True)
-    else:
-        probed = torch.ones((nq, n_lists), dtype=torch.bool, device=qf.device)
-    return coarse, probed
+    return coarse, probed_from_coarse(coarse, n_probes)
 
 
 def topk_labels(ds_f32: torch.Tensor, centers: torch.Tensor, k: int = 4, block: int = 131072):

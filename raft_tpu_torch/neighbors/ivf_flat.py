@@ -12,9 +12,13 @@ Search modes:
   (:func:`raft_tpu_torch.ops.ivf_scan.ivf_flat_fused_search`, the Hopper
   kernel on the card). It computes the exact top-k whatever
   ``fused_merge`` says (the JAX ``bank*``/``seg*`` merges approximate it).
+* ``"scan"`` — the dense masked scan (:func:`flat_scan_core`): every list
+  chunk scored by one f32 matmul, unprobed lists and empty slots masked,
+  an exact top-k; the per-shard core of
+  :func:`raft_tpu_torch.parallel.sharded_ivf_flat_search`.
 * ``"probe"`` — per-probe gather + running merge (the latency path).
 * ``"auto"`` — fused for ``nq >= 128`` when the metric is supported, else
-  probe. The JAX package's dense ``"scan"`` mode is not ported yet.
+  probe.
 
 Supported metrics: L2Expanded, L2SqrtExpanded, InnerProduct,
 CosineExpanded.
@@ -282,6 +286,85 @@ def _probe_search(index: IvfFlatIndex, queries, filter_bits, *, k: int, n_probes
     return acc_v, acc_i
 
 
+def scan_chunk_lists(n_lists: int, max_list: int) -> int:
+    """Lists per chunk of the dense scan: about 512k rows, rounded down to a
+    divisor of ``n_lists``."""
+    g = max(1, 524288 // max(max_list, 1))
+    while n_lists % g:
+        g -= 1
+    return g
+
+
+def probe_mask(centers, qf, n_probes: int, metric: DistanceType) -> torch.Tensor:
+    """``[nq, n_lists]`` bool: the lists each query probes. For cosine,
+    ``qf`` must already be unit-normalized."""
+    return ivf_common.probe_selection(centers, qf, n_probes, metric)[1]
+
+
+def flat_scan_core(list_data, list_indices, list_norms, qf, probed, filter_bits, *, k: int,
+                   metric: DistanceType, chunk_lists: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked dense scan over (a shard of) the padded lists
+    (``ivf_flat.py:366-459``). ``probed`` is ``[nq, n_lists_local]``;
+    ``list_indices`` carry global row ids, so per-shard results merge
+    directly. Each chunk of ``chunk_lists`` lists is scored by one f32
+    matmul (the score is the negated distance up to the query norm), empty
+    or filtered slots and unprobed lists get ``-inf`` added, a ``max(2k,
+    16)`` shortlist is selected and merged into the running top-k. The
+    selection is exact, with ``lax.top_k``'s tie order (the JAX package's
+    ``approx_max_k`` is exact on the CPU). Returns ``(distances, ids)``."""
+    nq = qf.shape[0]
+    n_lists, max_list = list_indices.shape
+    d = list_data.shape[-1]
+    G, M = chunk_lists, max_list
+    expects(n_lists % G == 0, "chunk_lists %d does not divide %d lists", G, n_lists)
+    dev = qf.device
+    acc_v = torch.full((nq, k), float("-inf"), dtype=torch.float32, device=dev)
+    acc_i = torch.zeros((nq, k), dtype=torch.int32, device=dev)
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    for c in range(n_lists // G):
+        lo, hi = c * G, (c + 1) * G
+        rows = list_data[lo:hi].reshape(G * M, d).to(torch.float32)
+        score = qf @ rows.T
+        if metric == DistanceType.CosineExpanded:
+            nrm = list_norms[lo:hi].reshape(G * M)
+            score.mul_(torch.rsqrt(torch.clamp(nrm, min=1e-24))[None, :])
+        elif metric != DistanceType.InnerProduct:
+            nrm = list_norms[lo:hi].reshape(G * M)
+            score.mul_(2.0).sub_(nrm[None, :])  # max == min L2
+        valid = ivf_common.valid_slots(list_indices[lo:hi].reshape(G * M), filter_bits)
+        score.add_(torch.where(valid, 0.0, neg_inf)[None, :])
+        score.view(nq, G, M).add_(torch.where(probed[:, lo:hi], 0.0, neg_inf)[:, :, None])
+        kk = min(max(2 * k, 16), G * M)
+        v, i = select_k(score, kk, select_min=False)
+        del score
+        nv, ni = select_k(torch.cat([acc_v, v], dim=1), k, select_min=False)
+        acc_i = torch.gather(torch.cat([acc_i, i + c * G * M], dim=1), 1, ni.to(torch.int64))
+        acc_v = nv
+    idx = list_indices.reshape(-1)[acc_i.to(torch.int64).reshape(-1)].reshape(nq, k)
+    idx = torch.where(torch.isfinite(acc_v), idx, -1).to(torch.int32)
+    if metric == DistanceType.InnerProduct:
+        return acc_v, idx
+    if metric == DistanceType.CosineExpanded:
+        return torch.where(idx >= 0, 1.0 - acc_v, float("inf")), idx
+    qn = torch.sum(qf * qf, dim=1)
+    out = torch.clamp(qn[:, None] - acc_v, min=0.0)
+    if metric == DistanceType.L2SqrtExpanded:
+        out = torch.sqrt(out)
+    return torch.where(idx >= 0, out, float("inf")), idx
+
+
+def _ivf_flat_scan_impl(centers, list_data, list_indices, list_norms, queries, filter_bits, *,
+                        k: int, n_probes: int, metric: DistanceType, chunk_lists: int):
+    """The dense scan of one query batch (``ivf_flat.py:302-345``): probe
+    mask, then :func:`flat_scan_core` over every list."""
+    qf = queries.to(torch.float32)
+    if metric == DistanceType.CosineExpanded:
+        qf = normalize_rows(qf)
+    probed = probe_mask(centers, qf, n_probes, metric)
+    return flat_scan_core(list_data, list_indices, list_norms, qf, probed, filter_bits, k=k,
+                          metric=metric, chunk_lists=chunk_lists)
+
+
 def fused_group(index: IvfFlatIndex, params: IvfFlatSearchParams) -> int:
     """Lists per fused-scan unit: ``params.fused_group`` clamped by
     :data:`FUSED_GROUP_BUDGET_BYTES`, 1 for a legacy (non-identity)
@@ -358,11 +441,20 @@ def search(
     filter_bits = prefilter.bits.to(dev) if prefilter is not None else None
     n_probes = min(params.n_probes, index.n_lists)
     nq = queries.shape[0]
-    if mode == "scan":
-        ivf_common.scan_mode_not_ported("ivf_flat")
     if mode == "auto":
         mode = "fused" if nq >= 128 and supported_metric(index.metric) else "probe"
-    expects(mode in ("probe", "fused"), "mode must be auto|probe|fused, got %r", mode)
+    expects(mode in ("scan", "probe", "fused"), "mode must be auto|scan|probe|fused, got %r",
+            mode)
+    if mode == "scan":
+        expects(supported_metric(index.metric), "scan mode: unsupported metric")
+        g = scan_chunk_lists(index.n_lists, index.max_list)
+
+        def run_scan(qc):
+            return _ivf_flat_scan_impl(index.centers, index.list_data, index.list_indices,
+                                       index.list_norms, qc, filter_bits, k=k, n_probes=n_probes,
+                                       metric=index.metric, chunk_lists=g)
+
+        return _batched(run_scan, queries, query_batch)
     if mode == "fused":
         expects(supported_metric(index.metric), "fused mode: unsupported metric")
         rank = index.center_rank

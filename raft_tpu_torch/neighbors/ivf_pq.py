@@ -23,10 +23,14 @@ Search modes:
   (:func:`raft_tpu_torch.ops.pq_scan.ivf_pq_fused_search`) for PQ codes,
   kernel B3 (:func:`raft_tpu_torch.ops.rabitq_scan.ivf_rabitq_fused_search`)
   for RaBitQ, both with a bf16 LUT or f32 estimator and an exact top-k.
+* ``"scan"`` — the dense decode-and-score scan (:func:`pq_scan_core`):
+  every list chunk decoded from the codebooks and scored by one matmul,
+  unprobed lists and empty slots masked, an exact top-k; the per-shard
+  core of :func:`raft_tpu_torch.parallel.sharded_ivf_pq_lists_search`.
+  RaBitQ's scan (``rabitq_scan_core``) is not ported yet and raises.
 * ``"probe"`` — per-probe f32 LUT gather + running merge.
 * ``"auto"`` — fused from 128 queries when eligible, else probe.
 
-The JAX package's dense ``"scan"`` mode is not ported yet and raises.
 With ``dataset=`` and ``refine_ratio > 1`` (the default 8) search keeps
 ``k * refine_ratio`` candidates and re-ranks them with exact distances.
 
@@ -706,14 +710,6 @@ def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
 # ---------------------------------------------------------------------------
 
 
-def _valid_slots(ids_p, filter_bits) -> torch.Tensor:
-    valid = ids_p >= 0
-    if filter_bits is not None:
-        ids = torch.clamp(ids_p, min=0).to(torch.int64)
-        valid = valid & (((filter_bits[ids // 32] >> (ids % 32).to(torch.int32)) & 1) == 1)
-    return valid
-
-
 def _probe_search(index: IvfPqIndex, codes_u, queries, filter_bits, *, k: int, n_probes: int,
                   lut_dtype: Optional[torch.dtype]):
     """Per-probe f32 LUT gather + running merge (``ivf_pq.py:1183-1278``)."""
@@ -757,7 +753,7 @@ def _probe_search(index: IvfPqIndex, codes_u, queries, filter_bits, *, k: int, n
         dist = torch.sum(torch.gather(lut, 2, codes_t), dim=1)
         if metric == DistanceType.InnerProduct:
             dist = dist + torch.gather(q_dot_c, 1, list_id[:, None])
-        valid = _valid_slots(ids_p, filter_bits)
+        valid = ivf_common.valid_slots(ids_p, filter_bits)
         dist = torch.where(valid, dist, torch.full_like(dist, worst))
         ids_masked = torch.where(valid, ids_p, torch.full_like(ids_p, -1))
         acc_v, acc_i = running_merge(acc_v, acc_i, dist, ids_masked, select_min=select_min)
@@ -796,13 +792,108 @@ def _rabitq_probe_search(index: IvfPqIndex, queries, filter_bits, *, k: int, n_p
             dist = mscore
         else:
             dist = torch.clamp(qn[:, None] - mscore, min=0.0)
-        valid = _valid_slots(ids_p, filter_bits)
+        valid = ivf_common.valid_slots(ids_p, filter_bits)
         dist = torch.where(valid, dist, torch.full_like(dist, worst))
         ids_masked = torch.where(valid, ids_p, torch.full_like(ids_p, -1))
         acc_v, acc_i = running_merge(acc_v, acc_i, dist, ids_masked, select_min=select_min)
     if metric == DistanceType.L2SqrtExpanded:
         acc_v = torch.where(acc_i >= 0, torch.sqrt(torch.clamp(acc_v, min=0.0)), acc_v)
     return acc_v, acc_i
+
+
+def scan_chunk_lists(n_lists: int, max_list: int) -> int:
+    """Lists per chunk of the decode scan: about 256k rows (the decoded
+    chunk is ``[rows, rot_dim]``), rounded down to a divisor of
+    ``n_lists``."""
+    g = max(1, 262144 // max(max_list, 1))
+    while n_lists % g:
+        g -= 1
+    return g
+
+
+def scan_bf16(lut_dtype, device) -> bool:
+    """Whether the decode scan scores in bf16: a bf16 ``lut_dtype`` on the
+    card (the JAX package's TPU-only mode; on the CPU both packages score in
+    f32)."""
+    return lut_dtype == torch.bfloat16 and torch.device(device).type == "cuda"
+
+
+def pq_scan_core(pq_centers, codes, list_indices, rot_sqnorms, q_rot, q_dot_c, probed,
+                 filter_bits, *, k: int, metric: DistanceType, per_cluster: bool,
+                 chunk_lists: int, bf16: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode-and-score over (a shard of) the code lists
+    (``ivf_pq.py:1045-1180``). ``codes`` are unpacked ``[n_lists, max_list,
+    pq_dim]``; ``list_indices``, ``rot_sqnorms``, ``q_dot_c [nq, n_lists]``
+    and ``probed`` may all be a shard's slice (ids are global). Each chunk is
+    decoded by a codebook gather (the values of the JAX package's one-hot
+    matmul) and scored by one matmul: L2 ``2 q_rot.r + 2 q.c - sqn``, IP
+    ``q_rot.r + q.c``; empty, filtered or unprobed slots get ``-inf``; a
+    ``max(2k, 16)`` shortlist per chunk is merged into the running top-k,
+    exactly (``lax.top_k``'s tie order). Returns ``(distances, ids)``."""
+    nq = q_rot.shape[0]
+    n_lists, max_list, pq_dim = codes.shape
+    rot_dim = q_rot.shape[1]
+    G, M = chunk_lists, max_list
+    expects(n_lists % G == 0, "chunk_lists %d does not divide %d lists", G, n_lists)
+    dev = q_rot.device
+    cdtype = torch.bfloat16 if bf16 else torch.float32
+    qc = q_rot.to(cdtype)
+    books = pq_centers.to(cdtype)
+    jidx = torch.arange(pq_dim, device=dev)[None, None, :]
+    acc_v = torch.full((nq, k), float("-inf"), dtype=torch.float32, device=dev)
+    acc_i = torch.zeros((nq, k), dtype=torch.int32, device=dev)
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    for c in range(n_lists // G):
+        lo, hi = c * G, (c + 1) * G
+        cod = codes[lo:hi].to(torch.int64)  # [G, M, pq_dim]
+        if per_cluster:
+            resid = books[lo:hi][torch.arange(G, device=dev)[:, None, None], cod]
+        else:
+            resid = books[jidx, cod]
+        resid = resid.reshape(G * M, rot_dim)
+        score = (qc @ resid.T).to(torch.float32)
+        del resid
+        pad_pen = torch.where(ivf_common.valid_slots(list_indices[lo:hi].reshape(G * M),
+                                                     filter_bits), 0.0, neg_inf)
+        qdc = q_dot_c[:, lo:hi]
+        if metric == DistanceType.InnerProduct:
+            score.view(nq, G, M).add_(torch.where(probed[:, lo:hi], qdc, neg_inf)[:, :, None])
+            score.add_(pad_pen[None, :])
+        else:
+            sqn = rot_sqnorms[lo:hi].reshape(G * M)
+            score.mul_(2.0).sub_((sqn - pad_pen)[None, :])
+            score.view(nq, G, M).add_(torch.where(probed[:, lo:hi], 2.0 * qdc, neg_inf)[:, :, None])
+        kk = min(max(2 * k, 16), G * M)
+        v, i = select_k(score, kk, select_min=False)
+        del score
+        nv, ni = select_k(torch.cat([acc_v, v], dim=1), k, select_min=False)
+        acc_i = torch.gather(torch.cat([acc_i, i + c * G * M], dim=1), 1, ni.to(torch.int64))
+        acc_v = nv
+    idx = list_indices.reshape(-1)[acc_i.to(torch.int64).reshape(-1)].reshape(nq, k)
+    idx = torch.where(torch.isfinite(acc_v), idx, -1).to(torch.int32)
+    if metric == DistanceType.InnerProduct:
+        return acc_v, idx
+    qn = torch.sum(q_rot * q_rot, dim=1)
+    out = torch.clamp(qn[:, None] - acc_v, min=0.0)
+    if metric == DistanceType.L2SqrtExpanded:
+        out = torch.sqrt(out)
+    return torch.where(idx >= 0, out, float("inf")), idx
+
+
+def _ivf_pq_scan_impl(centers, rotation, pq_centers, codes, list_indices, rot_sqnorms, queries,
+                      filter_bits, *, k: int, n_probes: int, metric: DistanceType,
+                      per_cluster: bool, chunk_lists: int, bf16: bool):
+    """The dense decode scan of one query batch (``ivf_pq.py:985-1040``):
+    the coarse product (both the probe selector and the ``q.c`` term),
+    the probe mask, the rotated queries, then :func:`pq_scan_core`."""
+    qf = queries.to(torch.float32)
+    q_dot_c = qf @ centers.T
+    probed = ivf_common.probed_from_coarse(
+        ivf_common.coarse_from_dots(q_dot_c, centers, metric), n_probes)
+    q_rot = qf @ rotation.T
+    return pq_scan_core(pq_centers, codes, list_indices, rot_sqnorms, q_rot, q_dot_c, probed,
+                        filter_bits, k=k, metric=metric, per_cluster=per_cluster,
+                        chunk_lists=chunk_lists, bf16=bf16)
 
 
 def fused_rank_group(index: IvfPqIndex, params: IvfPqSearchParams) -> Tuple[torch.Tensor, int]:
@@ -847,8 +938,6 @@ def search(
     queries = ser.as_tensor(queries, dev)
     expects(queries.ndim == 2 and queries.shape[1] == index.dim, "bad query shape")
     expects(k >= 1, "k must be >= 1")
-    if mode == "scan":
-        ivf_common.scan_mode_not_ported("ivf_pq")
     if dataset is not None and params.refine_ratio > 1:
         from raft_tpu_torch.neighbors.refine import check_refine_dataset, refine
 
@@ -871,7 +960,21 @@ def search(
     wants_f32_lut = params.lut_dtype == torch.float32
     if mode == "auto":
         mode = "fused" if nq >= 128 and fused_ok and not wants_f32_lut else "probe"
-    expects(mode in ("probe", "fused"), "mode must be auto|probe|fused, got %r", mode)
+    expects(mode in ("scan", "probe", "fused"), "mode must be auto|scan|probe|fused, got %r",
+            mode)
+    if mode == "scan":
+        expects(index.metric in _SUPPORTED, "scan mode: unsupported metric")
+        g = scan_chunk_lists(index.n_lists, index.max_list)
+        codes_u = index.codes_unpacked()
+        bf16 = scan_bf16(params.lut_dtype, dev)
+
+        def run_scan(qc):
+            return _ivf_pq_scan_impl(
+                index.centers, index.rotation, index.pq_centers, codes_u, index.list_indices,
+                index.rot_sqnorms, qc, filter_bits, k=k, n_probes=n_probes, metric=index.metric,
+                per_cluster=index.codebook_kind == PER_CLUSTER, chunk_lists=g, bf16=bf16)
+
+        return _batched(run_scan, queries, query_batch)
     if mode == "fused":
         if wants_f32_lut:
             warnings.warn(
@@ -914,6 +1017,8 @@ def _rabitq_modes(index: IvfPqIndex, queries, k: int, params: IvfPqSearchParams,
     """Mode routing for RaBitQ indexes: the same fused/probe pair, backed
     by kernel B3 and the probe-at-a-time estimator."""
     fused_ok = index.metric in _SUPPORTED
+    if mode == "scan":
+        ivf_common.scan_mode_not_ported("ivf_pq (rabitq)")
     if mode == "auto":
         mode = "fused" if queries.shape[0] >= 128 and fused_ok else "probe"
     expects(mode in ("probe", "fused"), "mode must be auto|probe|fused, got %r", mode)

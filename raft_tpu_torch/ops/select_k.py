@@ -3,8 +3,10 @@
 The tie order is ``lax.top_k``'s: among equal values the lower column
 comes first. ``torch.topk`` does not promise that, so :func:`select_k`
 uses ``torch.topk`` only to find each row's k-th value, then keeps every
-entry at or better than it in column order and finishes with a stable
-sort of that short candidate set.
+entry better than it and, of the entries equal to it, the first ones in
+column order, exactly k a row, and finishes with a stable sort of those
+k. (Keeping every entry equal to the k-th value would sort whole rows
+where many entries tie there, as a masked row of ``inf`` does.)
 """
 from __future__ import annotations
 
@@ -23,19 +25,20 @@ def _stable_smallest(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
         vals, pos = torch.sort(v, dim=1, stable=True)
         return vals[:, :k], pos[:, :k]
     kth = torch.topk(v, k, dim=1, largest=False, sorted=False).values.max(dim=1, keepdim=True).values
-    cand = v <= kth  # >= k entries per row (ties at the k-th value included)
-    width = int(cand.sum(dim=1).max())
-    # compact candidate columns in column order: rank = running count
-    rank = torch.cumsum(cand.to(torch.int32), dim=1) - 1
-    dest = torch.where(cand, rank, torch.full_like(rank, width)).to(torch.int64)
+    less = v < kth
+    eq = v == kth
+    need = k - torch.sum(less, dim=1, keepdim=True, dtype=torch.int32)
+    cand = less | (eq & (torch.cumsum(eq, dim=1, dtype=torch.int32) <= need))  # k a row
+    # compact the candidates in column order: rank = running count
+    rank = torch.cumsum(cand, dim=1, dtype=torch.int32) - 1
+    dest = torch.where(cand, rank, k).to(torch.int64)
     cols = torch.arange(n, device=v.device).expand(b, n)
-    buf_v = torch.full((b, width + 1), worst_value(v.dtype), dtype=v.dtype, device=v.device)
-    buf_c = torch.full((b, width + 1), n, dtype=torch.int64, device=v.device)
+    buf_v = torch.full((b, k + 1), worst_value(v.dtype), dtype=v.dtype, device=v.device)
+    buf_c = torch.full((b, k + 1), n, dtype=torch.int64, device=v.device)
     buf_v.scatter_(1, dest, v)
     buf_c.scatter_(1, dest, cols)
-    buf_v, buf_c = buf_v[:, :width], buf_c[:, :width]
-    vals, order = torch.sort(buf_v, dim=1, stable=True)
-    return vals[:, :k], torch.gather(buf_c, 1, order[:, :k])
+    vals, order = torch.sort(buf_v[:, :k], dim=1, stable=True)
+    return vals, torch.gather(buf_c[:, :k], 1, order)
 
 
 def select_k(

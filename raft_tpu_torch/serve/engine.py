@@ -11,9 +11,12 @@ engine's device, un-padded, and every request's future completes with a
 :class:`ServeResult`. The engine is synchronous: :meth:`~ServingEngine.step`
 processes at most one micro-batch on the caller's thread.
 
-It serves ``brute_force``, ``ivf_flat``, ``ivf_pq`` and ``cagra`` indexes. The JAX
-engine's observability, planner, robustness, tiering, mutable-index and
-replica hooks are not ported yet.
+It serves ``brute_force``, ``ivf_flat``, ``ivf_pq`` and ``cagra`` indexes, and
+lists-sharded ``sharded_ivf_flat`` and ``sharded_ivf_pq_lists`` indexes over
+a :class:`~raft_tpu_torch.parallel.Mesh` (every shard healthy, coverage 1.0).
+The JAX engine's observability, planner, robustness (health probes,
+degraded coverage), tiering, mutable-index and replica hooks are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ from raft_tpu_torch.serve.bucketing import (
 )
 
 #: algo name -> default dispatch mode at registration
-_DEFAULT_MODES = {"brute_force": "exact", "ivf_flat": "auto", "ivf_pq": "auto", "cagra": "auto"}
+_DEFAULT_MODES = {"brute_force": "exact", "ivf_flat": "auto", "ivf_pq": "auto", "cagra": "auto",
+                  "sharded_ivf_flat": "sharded", "sharded_ivf_pq_lists": "sharded"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +50,8 @@ class ServeResult:
 
     distances: np.ndarray  # [m, k]
     indices: np.ndarray  # [m, k]
+    #: fraction of the index that answered (1.0: no shard is ever excluded yet)
+    coverage: float = 1.0
     time_in_queue_ms: float = 0.0
     #: arrival -> results on the host, on the engine clock
     latency_ms: float = 0.0
@@ -64,6 +70,9 @@ class _Registration:
     params: object
     mode: str
     dataset: object = None
+    mesh: object = None
+    axis: str = "data"
+    merge_mode: str = "auto"
     search_kwargs: Dict[str, object] = dataclasses.field(default_factory=dict)
 
 
@@ -89,17 +98,25 @@ class ServingEngine:
     # -- registration ------------------------------------------------------
 
     def register(self, index_id: str, algo: str, index, *, params=None,
-                 mode: Optional[str] = None, dataset=None, **search_kwargs) -> None:
+                 mode: Optional[str] = None, dataset=None, mesh=None, axis: str = "data",
+                 merge_mode: str = "auto", **search_kwargs) -> None:
         """Register ``index`` (``algo`` = ``brute_force`` | ``ivf_flat`` |
-        ``ivf_pq`` | ``cagra``). ``params``/``mode``/``search_kwargs`` are pinned at
-        registration; ``dataset`` enables integrated refine (for ``ivf_pq``
-        at the params' ``refine_ratio``, 8 by default)."""
+        ``ivf_pq`` | ``cagra`` | ``sharded_ivf_flat`` |
+        ``sharded_ivf_pq_lists``). ``params``/``mode``/``search_kwargs`` are
+        pinned at registration; ``dataset`` enables integrated refine (for
+        ``ivf_pq`` at the params' ``refine_ratio``, 8 by default). The
+        sharded algos need ``mesh`` (their lists are split over its ``axis``)
+        and pin ``merge_mode`` (``"auto"`` | ``"ring"`` | ``"fused_ring"`` |
+        ``"gather"``)."""
         expects(algo in _DEFAULT_MODES, "unknown serving algo %r (want one of %s)",
                 algo, ", ".join(sorted(_DEFAULT_MODES)))
+        if algo.startswith("sharded_"):
+            expects(mesh is not None, "sharded algo %r needs mesh=", algo)
         self._indexes[index_id] = _Registration(
             index_id=index_id, algo=algo, index=index, params=params,
             mode=mode if mode is not None else _DEFAULT_MODES[algo],
-            dataset=dataset, search_kwargs=dict(search_kwargs),
+            dataset=dataset, mesh=mesh, axis=axis, merge_mode=merge_mode,
+            search_kwargs=dict(search_kwargs),
         )
 
     def registered(self) -> List[str]:
@@ -194,6 +211,13 @@ class ServingEngine:
         if reg.algo == "cagra":
             return lambda q: cagra.search(reg.index, q, k, reg.params, query_batch=bucket,
                                           mode=reg.mode, **kw)
+        if reg.algo.startswith("sharded_"):
+            from raft_tpu_torch.parallel import sharded_ann
+
+            search = (sharded_ann.sharded_ivf_flat_search if reg.algo == "sharded_ivf_flat"
+                      else sharded_ann.sharded_ivf_pq_lists_search)
+            return lambda q: search(reg.mesh, reg.index, q, k, reg.params, axis=reg.axis,
+                                    merge_mode=reg.merge_mode, **kw)
         algo = ivf_flat if reg.algo == "ivf_flat" else ivf_pq
         return lambda q: algo.search(reg.index, q, k, reg.params, query_batch=bucket,
                                      mode=reg.mode, dataset=reg.dataset, **kw)

@@ -72,6 +72,23 @@ def test_select_k_tie_order_identical(n, k, select_min):
     assert ti.dtype == torch.int32
 
 
+@pytest.mark.parametrize("select_min", [True, False])
+def test_select_k_rows_with_few_finite_values(select_min):
+    """The top-k path on rows masked as the dense scans mask them: most
+    entries ``∓inf``, some rows with fewer than k finite entries, ties at
+    the k-th value."""
+    rng = np.random.default_rng(3)
+    vals = rng.integers(0, 4, size=(9, 6000)).astype(np.float32)
+    worst = np.inf if select_min else -np.inf
+    vals[rng.random(vals.shape) < 0.999] = worst
+    vals[0] = worst
+    vals[1, :5] = 1.0
+    jv, ji = jsel.select_k(jnp.asarray(vals), 20, select_min=select_min)
+    tv, ti = tsel.select_k(torch.from_numpy(vals), 20, select_min=select_min)
+    assert np.array_equal(ti.numpy(), np.asarray(ji))
+    assert np.array_equal(tv.numpy(), np.asarray(jv))
+
+
 def test_running_merge_matches():
     rng = np.random.default_rng(3)
     acc_v = np.sort(rng.integers(0, 5, (6, 4)).astype(np.float32), axis=1)
