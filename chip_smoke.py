@@ -1,6 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
+    python3 chip_smoke.py --paths [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -26,14 +27,20 @@ Phases, in order; any failure exits non-zero:
    request at a time (buckets 1-128: the probe path and the fused scan),
    then as one backlog (full 128-row batches); served recall@10 against
    exact ``brute_force.knn``; fused against probe recall on all 10,000
-   queries in one batch; B1 held against its plain version at the main
-   path's shapes and timed beside its bound;
+   queries in one batch; ``select_k`` timed on a dense scan's
+   ``[128, 524288]`` block and a 16-row probe-path search; B1 held
+   against its plain version at the main path's shapes and timed beside
+   its bound;
 4. IVF-PQ at full width, on the same data: ``ivf_pq.build(n_lists=1024)``
    with the defaults (nibble codes, pq_dim 64), served with
    ``IvfPqSearchParams(n_probes=30)`` and ``dataset=`` (8x exact refine)
    in both serving modes; fused against probe recall without refine; a
    sweep of the fused tile size over unsorted 128-row batches; B2 at the
-   serving shape (k = 80) against its plain version and its bound;
+   serving shape (k = 80) against its plain version and its bound (timed
+   with the group tables the index keeps, and once building them), and
+   where its cycles go there (``fused_pq_topk_split``: each stage's share
+   of the warps' cycles and the min / median / max cycles of a CTA, from
+   the kernel's stage clock);
 5. RaBitQ: ``ivf_pq.build(n_lists=1024, pq_bits=1)``, ``search`` in auto
    mode with ``dataset=`` on the 10,000 queries; B3 at that path's shape
    against its plain version and its bound;
@@ -67,7 +74,11 @@ value bits.
 Each kernel's launch count is zeroed just before its path runs (phases
 3-7) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
 adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
-IVF-Flat serving backlogs.
+IVF-Flat serving backlogs. ``--paths`` runs none of the phases: it times
+one tree's IVF-Flat search paths per call (:func:`paths_ms`), importing
+``raft_tpu_torch`` from ``--tree`` (default: this file's directory), so
+that two trees unpacked with ``git archive`` can be compared in turns on
+one card, old / new / new / old.
 The last line is ``{"ok": true, "device": {...}}``, after the
 ``{"kernels": [...]}`` line and the card's name and power limit. Other
 numbers print one JSON object per line with the card's name and power
@@ -90,6 +101,11 @@ import torch
 # fp32 peak outside the tensor cores and HBM rate of an H100 SXM (NVIDIA data sheet)
 H100_FP32_FLOPS = 67e12
 H100_HBM_BYTES_S = 3.35e12
+# FP32 adds a second on an H100 SXM. The 67e12 peak counts an FMA as two
+# operations (132 SMs x 128 lanes x 2 x 1.98 GHz); an FADD is one
+# instruction a lane, so a sum of looked-up LUT entries (B2) or of masked
+# values (B3) runs at half that rate.
+H100_FADD_RATE = 33.5e12
 # Query tile of the served IVF-Flat index. A 128-row serving batch holds
 # unrelated queries, so with the default 128-row tile its probe union
 # overflows the tile's table of fused_probe_factor * n_probes / group units
@@ -269,10 +285,10 @@ def profile_backlog(card, eng, index_id, Q, starts, sizes, k, trace: str, n_req:
          kernels_ms={e.key[:80]: [e.count, e.self_device_time_total / 1e3] for e in top})
 
 
-def bound_ms(flops: float, bytes_: float) -> tuple:
-    """The larger of operations over the FP32 peak and bytes over the HBM
-    rate, in ms, and which one it is."""
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+def bound_ms(flops: float, bytes_: float, rate: float = H100_FP32_FLOPS) -> tuple:
+    """The larger of operations over their peak ``rate`` (FP32 by default)
+    and bytes over the HBM rate, in ms, and which one it is."""
+    t_ops = flops / rate * 1e3
     t_bytes = bytes_ / H100_HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -304,9 +320,10 @@ def flat_bound_ms(fi, k: int) -> tuple:
 
 def pq_bound_ms(a, k: int) -> tuple:
     """Least time for one fused_pq_topk call: one FP32 add per LUT lookup
-    (qt x filled rows of each tile's valid units x lookups per row) vs the
-    filled code rows of the distinct units plus 8 B a row (ln, id), the
-    LUT, the rotated queries, the tables and the outputs moved once."""
+    (qt x filled rows of each tile's valid units x lookups per row) at the
+    FADD rate vs the filled code rows of the distinct units plus 8 B a row
+    (ln, id), the LUT, the rotated queries, the tables and the outputs
+    moved once."""
     from raft_tpu_torch.ops import pq_scan
 
     codes, ln, w, q_rot, _, tp, pv = a["args"]
@@ -319,13 +336,31 @@ def pq_bound_ms(a, k: int) -> tuple:
     rows, distinct = _filled_work(tp, pv, filled)
     return bound_ms(float(qt) * rows * lookups,
                     distinct * (bpr + 8) + w.numel() * 2 + q_rot.numel() * 4 + tp.numel() * 8
-                    + q_rot.shape[0] * k * 8)
+                    + q_rot.shape[0] * k * 8, H100_FADD_RATE)
+
+
+def stage_split(rec, stages, counts=()) -> dict:
+    """A stage clock record (``csrc/stage_clock.cuh``, int64 ``[CTAs,
+    len(stages) + 2 + len(counts)]``) as each stage's share of the warps'
+    cycles (the rest, loop control and the final write, as ``other``), the
+    min, median and max of the CTAs' own cycles, and each counter's mean
+    over the CTAs."""
+    r = rec.cpu().numpy().astype(np.float64)
+    n = len(stages)
+    share = {name: float(r[:, i].sum() / r[:, n].sum()) for i, name in enumerate(stages)}
+    share["other"] = 1.0 - sum(share.values())
+    cta = r[:, n + 1]
+    return dict(stage_share=share, cta_cycles_min=float(cta.min()),
+                cta_cycles_median=float(np.median(cta)), cta_cycles_max=float(cta.max()),
+                ctas=int(r.shape[0]),
+                per_cta_mean={name: float(r[:, n + 2 + i].mean()) for i, name in enumerate(counts)})
 
 
 def rabitq_bound_ms(a, k: int) -> tuple:
     """Least time for one fused_rabitq_topk call: qt x filled rows x D FP32
-    adds vs the filled code rows of the distinct units plus 12 B a row
-    (ln, g, id), the rotated queries, the tables and the outputs."""
+    adds at the FADD rate vs the filled code rows of the distinct units
+    plus 12 B a row (ln, g, id), the rotated queries, the tables and the
+    outputs."""
     codes, ln, _, q_rot, _, tp, pv = a["args"]
     n_qt = tp.shape[0]
     qt = q_rot.shape[0] // n_qt
@@ -334,7 +369,7 @@ def rabitq_bound_ms(a, k: int) -> tuple:
     rows, distinct = _filled_work(tp, pv, filled)
     return bound_ms(float(qt) * rows * 8 * bpr,
                     distinct * (bpr + 12) + q_rot.numel() * 4 + tp.numel() * 8
-                    + q_rot.shape[0] * k * 8)
+                    + q_rot.shape[0] * k * 8, H100_FADD_RATE)
 
 
 def flat_args(index, queries, params):
@@ -597,18 +632,53 @@ def check_deterministic(card, phase, name, build, fields) -> None:
         raise AssertionError(f"{name} built twice from one seed differs in {diff}")
 
 
+def paths_ms(card: str, tree: str, seed: int, reps: int = 50) -> None:
+    """Per-call ms (CUDA events around ``reps`` calls, host time included)
+    of ``ivf_flat.search`` at ``n_probes=20``, k = 10 on a 1,000,000 x 128
+    index (``n_lists=1024``, phase 3's data distribution from ``seed``):
+    one 128-row batch in fused mode (the served bucket of 128), 16 rows in
+    probe mode (the one-client buckets), 128 rows in scan mode (the dense
+    scan), and ``select_k`` on those 128 rows' coarse scores."""
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import ivf_common, ivf_flat
+    from raft_tpu_torch.ops.select_k import select_k
+
+    gen = Clustered(np.random.default_rng(seed), 128, 4096)
+    X, Q = gen.sample(1_000_000), gen.sample(128)
+    index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024),
+                           res=Resources(device="cuda", seed=seed))
+    q = torch.from_numpy(Q).cuda()
+    params = dataclasses.replace(ivf_flat.IvfFlatSearchParams(n_probes=20), fused_qt=SERVE_QT)
+    coarse = ivf_common.coarse_scores(index.centers, q, index.metric)
+    emit(card, phase="paths", metric="path_ms", tree=os.path.basename(os.path.abspath(tree)),
+         reps=reps,
+         fused_128=cuda_ms(lambda: ivf_flat.search(index, q, 10, params, mode="fused"), reps),
+         probe_16=cuda_ms(lambda: ivf_flat.search(index, q[:16], 10, params, mode="probe"), reps),
+         scan_128=cuda_ms(lambda: ivf_flat.search(index, q, 10, params, mode="scan"), reps // 5),
+         select_k_coarse=cuda_ms(lambda: select_k(coarse, 20, select_min=True), reps))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quick", action="store_true", help="phases 1-2 only")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the serving backlogs with torch.profiler")
+    ap.add_argument("--paths", action="store_true",
+                    help="only time one tree's IVF-Flat search paths per call")
+    ap.add_argument("--tree", help="with --paths: the tree whose raft_tpu_torch to import")
     args = ap.parse_args()
+    if args.tree and not args.paths:
+        ap.error("--tree goes with --paths")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    tree = os.path.abspath(args.tree or os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, tree)
+    if args.paths:
+        paths_ms(card_line(), tree, args.seed)
+        return 0
     from raft_tpu_torch.core.resources import Resources
     from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
     from raft_tpu_torch.ops import cagra_search, ivf_scan, pq_scan, rabitq_scan
@@ -808,6 +878,19 @@ def main() -> int:
         raise AssertionError(f"fused recall {fused_recall} < probe recall {probe_recall} - 0.005")
     if min(fused_recall, probe_recall) < 0.90:
         raise AssertionError(f"recall@10 below 0.90: fused {fused_recall}, probe {probe_recall}")
+    # select_k where the paths run it: a dense scan's [128, 524288] block
+    # (k = 20, largest first, three quarters -inf as unprobed lists are),
+    # and a 16-row probe-path search (20 probes: its merges)
+    from raft_tpu_torch.ops.select_k import select_k
+
+    gen_t = torch.Generator(device="cuda").manual_seed(args.seed)
+    blk = torch.randn((128, 524288), device="cuda", generator=gen_t)
+    blk[torch.rand(blk.shape, device="cuda", generator=gen_t) < 0.75] = float("-inf")
+    emit(card, phase="main", metric="select_k_ms",
+         scan_block=cuda_ms(lambda: select_k(blk, 20, select_min=False), reps=20),
+         probe_search_16_rows=cuda_ms(lambda: ivf_flat.search(index, Qt[:16], k, params,
+                                                              mode="probe"), reps=20))
+    del blk
 
     # the tile size of an unsorted 128-row batch: recall and time per batch
     sub = 2048
@@ -912,15 +995,24 @@ def main() -> int:
     kv, ks = run_pq(a, kk)
     rv, rs = run_pq(a, kk, reference=True)
     max_err["fused_pq_topk"] = max(max_err["fused_pq_topk"], compare_topk(kv, ks, rv, rs))
-    b2 = time_kernel(run_pq, a, kk, reps=20)
+    # timed as the search calls it: the index keeps the group tables
+    tables = pq_scan.group_tables(torch.isfinite(a["args"][1]))
+    b2 = time_kernel(lambda a, k, reference=False, **kw: run_pq(
+        a, k, reference, **kw, **({} if reference else {"tables": tables})), a, kk, reps=20)
     b2["bound_ms"], b2["bound_by"] = pq_bound_ms(a, kk)
     emit(card, phase="ivf_pq", metric="fused_pq_topk_ms_serving_batch", value=b2["ms"],
          bound_ms=b2["bound_ms"], bound_by=b2["bound_by"], plain_ms=b2["plain_ms"],
+         ms_building_tables=cuda_ms(lambda: run_pq(a, kk), reps=20),
          n_split_ms=b2["n_split_ms"], k=kk, fused_qt=SERVE_QT_PQ,
          n_qt=int(a["args"][5].shape[0]), valid_units=int((a["args"][6] > 0).sum()),
          unit_rows=int(a["args"][0].shape[1]), code_mode=a["code_mode"],
          queries_per_cta=pq_scan.queries_per_cta(a["args"][2].shape[1], kk, pq_index.n_lists
                                                  // a["args"][0].shape[0]))
+    # where B2's cycles go at that shape: one launch with the stage clock on
+    rec = pq_scan.fused_pq_topk_stages(*a["args"], k=kk, metric=a["metric"], qt=a["qt"],
+                                       code_mode=a["code_mode"], ksub=a["ksub"])
+    emit(card, phase="ivf_pq", metric="fused_pq_topk_split", k=kk, fused_qt=SERVE_QT_PQ,
+         **stage_split(rec, pq_scan.STAGES, pq_scan.COUNTS))
     if args.profile:
         profile_backlog(card, eng, "sift1m_pq", Q, starts, sizes, k, "serve_pq_backlog_trace.json")
 

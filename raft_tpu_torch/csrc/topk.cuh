@@ -3,11 +3,12 @@
 //
 // Each query keeps a sorted list of its k best (score, slot) pairs in shared
 // memory, in lexicographic order (ties go to the lower slot, as lax.top_k
-// does); empty entries are (+inf, SLOT_EMPTY). A kernel scores its slots in
-// ascending slot order and offers them 32 at a time to a query's list with
-// warp_offer: one warp filters the batch against the list's k-th entry with a
-// ballot and inserts the survivors in lane (= slot) order, so a candidate that
-// ties an existing score always ranks after it.
+// does); empty entries are (+inf, SLOT_EMPTY). B1 and B3 offer their slots
+// 32 at a time to a query's list with warp_offer: one warp filters the batch
+// against the list's k-th entry with a ballot and inserts the survivors one
+// by one. B2 merges whole batches of filtered candidates with warp_merge.
+// Every comparison is lexicographic, so the order of the offers never
+// changes the list.
 //
 // To fill the card with few query tiles, a kernel may split a tile's valid
 // probe units into n_split contiguous shares (grid z, unit_share): each CTA
@@ -49,9 +50,10 @@ __device__ __forceinline__ void unit_share(const int* __restrict__ pv_row, int P
   *v_hi = (int)((long long)n_valid * (split + 1) / n_split);
 }
 
-// Offer one candidate per lane (slots ascending with the lane, all above any
-// slot offered before) to the sorted list (tv, ts) of k entries. Called by
-// all 32 lanes of one warp; +inf candidates never enter.
+// Offer one candidate per lane to the sorted list (tv, ts) of k entries.
+// Called by all 32 lanes of one warp; +inf candidates never enter. Every
+// comparison is lexicographic on (score, slot), so the list is the exact
+// top-k of everything offered, in whatever order it came.
 __device__ __forceinline__ void warp_offer(float* tv, int* ts, int k, float cand, int cslot,
                                            int lane) {
   const bool ok0 = cand < INFINITY && lex_less(cand, cslot, tv[k - 1], ts[k - 1]);
@@ -67,22 +69,83 @@ __device__ __forceinline__ void warp_offer(float* tv, int* ts, int k, float cand
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
     const int pos = cnt;  // entries strictly before the candidate
+    // shift the entries after pos up by one; static indices keep sv/ss in registers
     float sv[MAX_K / 32];
     int ss[MAX_K / 32];
-    int n_own = 0;
-    for (int e = lane; e < k; e += 32) {
-      if (e > pos) { sv[n_own] = tv[e - 1]; ss[n_own] = ts[e - 1]; }
-      ++n_own;
+#pragma unroll
+    for (int i = 0; i < MAX_K / 32; ++i) {
+      const int e = lane + 32 * i;
+      if (e < k && e > pos) { sv[i] = tv[e - 1]; ss[i] = ts[e - 1]; }
     }
     __syncwarp();
-    n_own = 0;
-    for (int e = lane; e < k; e += 32) {
-      if (e > pos) { tv[e] = sv[n_own]; ts[e] = ss[n_own]; }
-      ++n_own;
+#pragma unroll
+    for (int i = 0; i < MAX_K / 32; ++i) {
+      const int e = lane + 32 * i;
+      if (e < k && e > pos) { tv[e] = sv[i]; ts[e] = ss[i]; }
     }
     if (lane == 0) { tv[pos] = cv; ts[pos] = cs; }
     __syncwarp();
   }
+}
+
+// Merge one candidate per lane (`in`: the lane holds one; slots distinct
+// from the list's) into the sorted list (tv, ts) of k entries, all at once.
+// The batch is sorted by counting (a shuffle scan) into the warp's scratch
+// (bv, bs: 32 entries, may alias the candidates' own buffer); a candidate's
+// place is its rank in the batch plus the list entries before it, list
+// entry e's is e plus the batch entries before it (binary searches), and
+// whatever lands past k drops out. Exact whatever the order of the
+// batches. Called by all 32 lanes of one warp.
+__device__ __forceinline__ void warp_merge(float* tv, int* ts, int k, float cand, int cslot,
+                                          bool in, float* bv, int* bs, int lane) {
+  constexpr unsigned FULL = 0xffffffffu;
+  in = in && lex_less(cand, cslot, tv[k - 1], ts[k - 1]);
+  const unsigned who = __ballot_sync(FULL, in);
+  if (!who) return;
+  const int nb = __popc(who);
+  int rb = 0;  // batch entries before this lane's
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const float v = __shfl_sync(FULL, cand, j);
+    const int s = __shfl_sync(FULL, cslot, j);
+    rb += ((who >> j) & 1u) && lex_less(v, s, cand, cslot) ? 1 : 0;
+  }
+  __syncwarp();  // the scratch may hold this batch's own entries
+  if (in) { bv[rb] = cand; bs[rb] = cslot; }
+  int r = rb;  // + list entries before it
+  if (in) {
+    int lo = 0, hi = k;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (lex_less(tv[mid], ts[mid], cand, cslot)) lo = mid + 1; else hi = mid;
+    }
+    r += lo;
+  }
+  __syncwarp();
+  float lv[MAX_K / 32];
+  int ls[MAX_K / 32], lp[MAX_K / 32];
+#pragma unroll
+  for (int i = 0; i < MAX_K / 32; ++i) {
+    lp[i] = k;
+    const int e = lane + 32 * i;
+    if (32 * i < k && e < k) {
+      lv[i] = tv[e];
+      ls[i] = ts[e];
+      int lo = 0, hi = nb;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (lex_less(bv[mid], bs[mid], lv[i], ls[i])) lo = mid + 1; else hi = mid;
+      }
+      lp[i] = e + lo;
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < MAX_K / 32; ++i) {
+    if (lp[i] < k) { tv[lp[i]] = lv[i]; ts[lp[i]] = ls[i]; }
+  }
+  if (in && r < k) { tv[r] = cand; ts[r] = cslot; }
+  __syncwarp();
 }
 
 // Write the `live` lists of a CTA (queries qrow0 .. qrow0 + live - 1), one

@@ -12,13 +12,13 @@ slots.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Iterable, Tuple
 
 import torch
 
 from raft_tpu_torch.core.errors import fail
 from raft_tpu_torch.ops.distance import DistanceType
-from raft_tpu_torch.ops.select_k import select_k
+from raft_tpu_torch.ops.select_k import running_merge, select_k, worst_value
 from raft_tpu_torch.utils.math import round_up
 
 
@@ -26,6 +26,48 @@ def scan_mode_not_ported(algo: str) -> None:
     """Raise for a ``mode="scan"`` the port does not have yet."""
     fail("%s: mode='scan' (the dense scan over all lists) is not ported yet; use "
          "mode='fused', 'probe' or 'auto'", algo)
+
+
+def auto_search_mode(device: torch.device, nq: int, fused_ok: bool, scan_ok: bool = True) -> str:
+    """What ``mode="auto"`` runs for a batch of ``nq`` queries on an index
+    on ``device``: from 128 queries, the fused kernel on a CUDA index (when
+    ``fused_ok``) and elsewhere the dense scan, as the JAX package takes
+    ``scan`` off a TPU (``raft_tpu/plan/planner.py:112-135``); the probe
+    path below 128 queries, on a CUDA index the kernel cannot take, and
+    where there is no scan (``scan_ok=False``)."""
+    if nq < 128:
+        return "probe"
+    if device.type == "cuda":
+        return "fused" if fused_ok else "probe"
+    return "scan" if scan_ok else "probe"
+
+
+#: candidates (rows x columns) one merge of :func:`merge_probes` takes at most
+PROBE_MERGE_ELEMS = 1 << 23
+
+
+def merge_probes(tiles: Iterable[Tuple[torch.Tensor, torch.Tensor]], *, nq: int, k: int,
+                 n_probes: int, cols: int, select_min: bool,
+                 device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The probe paths' running top-k over ``tiles``, one ``(dist [nq,
+    cols] f32, ids [nq, cols] i32)`` a probe, masked slots already at the
+    worst value with id -1. Merging several probes' tiles at once selects
+    what a merge a probe does (accumulated and earlier entries win ties
+    either way) with fewer launches, so the tiles are merged as many at a
+    time as ``PROBE_MERGE_ELEMS`` candidates allow."""
+    group = max(1, min(n_probes, PROBE_MERGE_ELEMS // max(1, nq * cols)))
+    acc_v = torch.full((nq, k), worst_value(torch.float32, select_min), dtype=torch.float32,
+                       device=device)
+    acc_i = torch.full((nq, k), -1, dtype=torch.int32, device=device)
+    pend = []
+    for p, tile in enumerate(tiles):
+        pend.append(tile)
+        if len(pend) == group or p == n_probes - 1:
+            acc_v, acc_i = running_merge(acc_v, acc_i, torch.cat([t[0] for t in pend], dim=1),
+                                         torch.cat([t[1] for t in pend], dim=1),
+                                         select_min=select_min)
+            pend = []
+    return acc_v, acc_i
 
 
 def coarse_from_dots(q_dot_c, centers, metric) -> torch.Tensor:

@@ -17,8 +17,9 @@ Search modes:
   an exact top-k; the per-shard core of
   :func:`raft_tpu_torch.parallel.sharded_ivf_flat_search`.
 * ``"probe"`` — per-probe gather + running merge (the latency path).
-* ``"auto"`` — fused for ``nq >= 128`` when the metric is supported, else
-  probe.
+* ``"auto"`` — from 128 queries, fused on a CUDA index when the metric is
+  supported and scan on any other device (the JAX package's choice off a
+  TPU); else probe (:func:`raft_tpu_torch.neighbors.ivf_common.auto_search_mode`).
 
 Supported metrics: L2Expanded, L2SqrtExpanded, InnerProduct,
 CosineExpanded.
@@ -47,7 +48,7 @@ from raft_tpu_torch.ops.ivf_scan import (
     spatial_center_rank,
     supported_metric,
 )
-from raft_tpu_torch.ops.select_k import running_merge, select_k, worst_value
+from raft_tpu_torch.ops.select_k import select_k, worst_value
 
 #: The fused scan's unit of ``group`` adjacent lists is clamped so that
 #: ``group * max_list * d * (2 * itemsize + cast bytes)`` stays within this
@@ -244,7 +245,8 @@ def extend(index: IvfFlatIndex, new_vectors, new_ids=None,
 
 
 def _probe_search(index: IvfFlatIndex, queries, filter_bits, *, k: int, n_probes: int):
-    """Per-probe gather + running merge (``ivf_flat.py:461-537``)."""
+    """Per-probe gather + running merge (``ivf_flat.py:461-537``), several
+    probes a merge (:func:`ivf_common.merge_probes`)."""
     metric = index.metric
     nq = queries.shape[0]
     qf = queries.to(torch.float32)
@@ -260,27 +262,32 @@ def _probe_search(index: IvfFlatIndex, queries, filter_bits, *, k: int, n_probes
     q_sqnorm = torch.sum(qf * qf, dim=1)
     select_min = metric != DistanceType.InnerProduct
     worst = worst_value(torch.float32, select_min)
-    acc_v = torch.full((nq, k), worst, dtype=torch.float32, device=qf.device)
-    acc_i = torch.full((nq, k), -1, dtype=torch.int32, device=qf.device)
-    for p in range(n_probes):
-        list_id = probes[:, p]
-        data_p = index.list_data[list_id].to(torch.float32)  # [nq, max_list, d]
-        ids_p = index.list_indices[list_id]
-        dots = torch.bmm(data_p, qf[:, :, None])[:, :, 0]
-        if metric == DistanceType.InnerProduct:
-            dist = dots
-        elif metric == DistanceType.CosineExpanded:
-            dist = 1.0 - dots * torch.rsqrt(torch.clamp(index.list_norms[list_id], min=1e-24))
-        else:
-            dist = torch.clamp(q_sqnorm[:, None] + index.list_norms[list_id] - 2.0 * dots, min=0.0)
-        valid = ids_p >= 0
-        if filter_bits is not None:
-            ids = torch.clamp(ids_p, min=0).to(torch.int64)
-            bit = (filter_bits[ids // 32] >> (ids % 32).to(torch.int32)) & 1
-            valid = valid & (bit == 1)
-        dist = torch.where(valid, dist, torch.full_like(dist, worst))
-        ids_masked = torch.where(valid, ids_p, torch.full_like(ids_p, -1))
-        acc_v, acc_i = running_merge(acc_v, acc_i, dist, ids_masked, select_min=select_min)
+
+    def tiles():
+        for p in range(n_probes):
+            list_id = probes[:, p]
+            data_p = index.list_data[list_id].to(torch.float32)  # [nq, max_list, d]
+            ids_p = index.list_indices[list_id]
+            dots = torch.bmm(data_p, qf[:, :, None])[:, :, 0]
+            if metric == DistanceType.InnerProduct:
+                dist = dots
+            elif metric == DistanceType.CosineExpanded:
+                dist = 1.0 - dots * torch.rsqrt(torch.clamp(index.list_norms[list_id], min=1e-24))
+            else:
+                dist = torch.clamp(q_sqnorm[:, None] + index.list_norms[list_id] - 2.0 * dots,
+                                   min=0.0)
+            valid = ids_p >= 0
+            if filter_bits is not None:
+                ids = torch.clamp(ids_p, min=0).to(torch.int64)
+                bit = (filter_bits[ids // 32] >> (ids % 32).to(torch.int32)) & 1
+                valid = valid & (bit == 1)
+            dist = torch.where(valid, dist, torch.full_like(dist, worst))
+            ids_masked = torch.where(valid, ids_p, torch.full_like(ids_p, -1))
+            yield dist, ids_masked
+
+    acc_v, acc_i = ivf_common.merge_probes(tiles(), nq=nq, k=k, n_probes=n_probes,
+                                           cols=index.list_indices.shape[1],
+                                           select_min=select_min, device=qf.device)
     if metric == DistanceType.L2SqrtExpanded:
         acc_v = torch.where(acc_i >= 0, torch.sqrt(torch.clamp(acc_v, min=0.0)), acc_v)
     return acc_v, acc_i
@@ -442,7 +449,7 @@ def search(
     n_probes = min(params.n_probes, index.n_lists)
     nq = queries.shape[0]
     if mode == "auto":
-        mode = "fused" if nq >= 128 and supported_metric(index.metric) else "probe"
+        mode = ivf_common.auto_search_mode(dev, nq, supported_metric(index.metric))
     expects(mode in ("scan", "probe", "fused"), "mode must be auto|scan|probe|fused, got %r",
             mode)
     if mode == "scan":

@@ -29,7 +29,9 @@ Search modes:
   core of :func:`raft_tpu_torch.parallel.sharded_ivf_pq_lists_search`.
   RaBitQ's scan (``rabitq_scan_core``) is not ported yet and raises.
 * ``"probe"`` — per-probe f32 LUT gather + running merge.
-* ``"auto"`` — fused from 128 queries when eligible, else probe.
+* ``"auto"`` — from 128 queries, fused on a CUDA index when eligible and
+  scan on any other device (probe for RaBitQ, whose scan is not ported);
+  else probe.
 
 With ``dataset=`` and ``refine_ratio > 1`` (the default 8) search keeps
 ``k * refine_ratio`` candidates and re-ranks them with exact distances.
@@ -58,9 +60,9 @@ from raft_tpu_torch.neighbors.ivf_flat import _batched
 from raft_tpu_torch.ops.distance import DistanceType, resolve_metric
 from raft_tpu_torch.ops.fused_1nn import min_cluster_and_distance
 from raft_tpu_torch.ops.ivf_scan import spatial_center_rank
-from raft_tpu_torch.ops.pq_scan import ivf_pq_fused_search
+from raft_tpu_torch.ops.pq_scan import group_tables, ivf_pq_fused_search
 from raft_tpu_torch.ops.rabitq_scan import ivf_rabitq_fused_search, sign_bits
-from raft_tpu_torch.ops.select_k import running_merge, select_k, worst_value
+from raft_tpu_torch.ops.select_k import select_k, worst_value
 from raft_tpu_torch.utils.math import round_up
 
 _SUPPORTED = (
@@ -710,9 +712,23 @@ def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
 # ---------------------------------------------------------------------------
 
 
+def _fused_group_tables(index: IvfPqIndex, group: int):
+    """B2's group tables (:func:`raft_tpu_torch.ops.pq_scan.group_tables`)
+    of the index without a filter, for units of ``group`` lists: built at
+    the first fused search and kept on the index (a plain attribute, so a
+    rebuilt or extended index starts without them)."""
+    cache = index.__dict__.setdefault("_fused_group_tables", {})
+    if group not in cache:
+        n_lists, m = index.list_indices.shape
+        cache[group] = group_tables((index.list_indices >= 0).reshape(n_lists // group, 1,
+                                                                       group * m))
+    return cache[group]
+
+
 def _probe_search(index: IvfPqIndex, codes_u, queries, filter_bits, *, k: int, n_probes: int,
                   lut_dtype: Optional[torch.dtype]):
-    """Per-probe f32 LUT gather + running merge (``ivf_pq.py:1183-1278``)."""
+    """Per-probe f32 LUT gather + running merge (``ivf_pq.py:1183-1278``),
+    several probes a merge (:func:`ivf_common.merge_probes`)."""
     metric = index.metric
     nq = queries.shape[0]
     qf = queries.to(torch.float32)
@@ -727,36 +743,40 @@ def _probe_search(index: IvfPqIndex, codes_u, queries, filter_bits, *, k: int, n
     pqc_norm = torch.sum(pqc_all * pqc_all, dim=-1)
     select_min = metric != DistanceType.InnerProduct
     worst = worst_value(torch.float32, select_min)
-    acc_v = torch.full((nq, k), worst, dtype=torch.float32, device=qf.device)
-    acc_i = torch.full((nq, k), -1, dtype=torch.int32, device=qf.device)
-    for p in range(n_probes):
-        list_id = probes[:, p]
-        ids_p = index.list_indices[list_id]
-        if metric == DistanceType.InnerProduct:
-            if per_cluster:
-                lut = torch.einsum("npl,nkl->npk", q_sub, pqc_all[list_id])
+
+    def tiles():
+        for p in range(n_probes):
+            list_id = probes[:, p]
+            ids_p = index.list_indices[list_id]
+            if metric == DistanceType.InnerProduct:
+                if per_cluster:
+                    lut = torch.einsum("npl,nkl->npk", q_sub, pqc_all[list_id])
+                else:
+                    lut = torch.einsum("npl,pkl->npk", q_sub, pqc_all)
             else:
-                lut = torch.einsum("npl,pkl->npk", q_sub, pqc_all)
-        else:
-            diff = q_sub - index.centers_rot[list_id].reshape(nq, pq_dim, -1)
-            dn = torch.sum(diff * diff, dim=-1)
-            if per_cluster:
-                dots = torch.einsum("npl,nkl->npk", diff, pqc_all[list_id])
-                cn = pqc_norm[list_id][:, None, :]
-            else:
-                dots = torch.einsum("npl,pkl->npk", diff, pqc_all)
-                cn = pqc_norm[None, :, :]
-            lut = dn[:, :, None] - 2.0 * dots + cn
-        if lut_dtype is not None and lut_dtype != torch.float32:
-            lut = lut.to(lut_dtype).to(torch.float32)
-        codes_t = codes_u[list_id].permute(0, 2, 1).to(torch.int64)  # [nq, pq_dim, max_list]
-        dist = torch.sum(torch.gather(lut, 2, codes_t), dim=1)
-        if metric == DistanceType.InnerProduct:
-            dist = dist + torch.gather(q_dot_c, 1, list_id[:, None])
-        valid = ivf_common.valid_slots(ids_p, filter_bits)
-        dist = torch.where(valid, dist, torch.full_like(dist, worst))
-        ids_masked = torch.where(valid, ids_p, torch.full_like(ids_p, -1))
-        acc_v, acc_i = running_merge(acc_v, acc_i, dist, ids_masked, select_min=select_min)
+                diff = q_sub - index.centers_rot[list_id].reshape(nq, pq_dim, -1)
+                dn = torch.sum(diff * diff, dim=-1)
+                if per_cluster:
+                    dots = torch.einsum("npl,nkl->npk", diff, pqc_all[list_id])
+                    cn = pqc_norm[list_id][:, None, :]
+                else:
+                    dots = torch.einsum("npl,pkl->npk", diff, pqc_all)
+                    cn = pqc_norm[None, :, :]
+                lut = dn[:, :, None] - 2.0 * dots + cn
+            if lut_dtype is not None and lut_dtype != torch.float32:
+                lut = lut.to(lut_dtype).to(torch.float32)
+            codes_t = codes_u[list_id].permute(0, 2, 1).to(torch.int64)  # [nq, pq_dim, max_list]
+            dist = torch.sum(torch.gather(lut, 2, codes_t), dim=1)
+            if metric == DistanceType.InnerProduct:
+                dist = dist + torch.gather(q_dot_c, 1, list_id[:, None])
+            valid = ivf_common.valid_slots(ids_p, filter_bits)
+            dist = torch.where(valid, dist, torch.full_like(dist, worst))
+            ids_masked = torch.where(valid, ids_p, torch.full_like(ids_p, -1))
+            yield dist, ids_masked
+
+    acc_v, acc_i = ivf_common.merge_probes(tiles(), nq=nq, k=k, n_probes=n_probes,
+                                           cols=index.list_indices.shape[1],
+                                           select_min=select_min, device=qf.device)
     if metric == DistanceType.L2SqrtExpanded:
         acc_v = torch.where(acc_i >= 0, torch.sqrt(torch.clamp(acc_v, min=0.0)), acc_v)
     return acc_v, acc_i
@@ -778,24 +798,28 @@ def _rabitq_probe_search(index: IvfPqIndex, queries, filter_bits, *, k: int, n_p
     coef = 1.0 if metric == DistanceType.InnerProduct else 2.0
     select_min = metric != DistanceType.InnerProduct
     worst = worst_value(torch.float32, select_min)
-    acc_v = torch.full((nq, k), worst, dtype=torch.float32, device=qf.device)
-    acc_i = torch.full((nq, k), -1, dtype=torch.int32, device=qf.device)
-    for p in range(n_probes):
-        list_id = probes[:, p]
-        ids_p = index.list_indices[list_id]
-        bits = sign_bits(index.codes[list_id].reshape(-1, bpr)).to(torch.float32)
-        bq = torch.bmm(bits.reshape(nq, -1, 8 * bpr), q_rot[:, :, None])[:, :, 0]
-        qdc = torch.gather(q_dot_c, 1, list_id[:, None])
-        mscore = (coef * qdc + index.corrections[list_id] * (bq - 0.5 * sq[:, None])
-                  - index.rot_sqnorms[list_id])
-        if metric == DistanceType.InnerProduct:
-            dist = mscore
-        else:
-            dist = torch.clamp(qn[:, None] - mscore, min=0.0)
-        valid = ivf_common.valid_slots(ids_p, filter_bits)
-        dist = torch.where(valid, dist, torch.full_like(dist, worst))
-        ids_masked = torch.where(valid, ids_p, torch.full_like(ids_p, -1))
-        acc_v, acc_i = running_merge(acc_v, acc_i, dist, ids_masked, select_min=select_min)
+
+    def tiles():
+        for p in range(n_probes):
+            list_id = probes[:, p]
+            ids_p = index.list_indices[list_id]
+            bits = sign_bits(index.codes[list_id].reshape(-1, bpr)).to(torch.float32)
+            bq = torch.bmm(bits.reshape(nq, -1, 8 * bpr), q_rot[:, :, None])[:, :, 0]
+            qdc = torch.gather(q_dot_c, 1, list_id[:, None])
+            mscore = (coef * qdc + index.corrections[list_id] * (bq - 0.5 * sq[:, None])
+                      - index.rot_sqnorms[list_id])
+            if metric == DistanceType.InnerProduct:
+                dist = mscore
+            else:
+                dist = torch.clamp(qn[:, None] - mscore, min=0.0)
+            valid = ivf_common.valid_slots(ids_p, filter_bits)
+            dist = torch.where(valid, dist, torch.full_like(dist, worst))
+            ids_masked = torch.where(valid, ids_p, torch.full_like(ids_p, -1))
+            yield dist, ids_masked
+
+    acc_v, acc_i = ivf_common.merge_probes(tiles(), nq=nq, k=k, n_probes=n_probes,
+                                           cols=index.list_indices.shape[1],
+                                           select_min=select_min, device=qf.device)
     if metric == DistanceType.L2SqrtExpanded:
         acc_v = torch.where(acc_i >= 0, torch.sqrt(torch.clamp(acc_v, min=0.0)), acc_v)
     return acc_v, acc_i
@@ -928,8 +952,8 @@ def search(
     unfilled slots get id -1. Distances are PQ (or RaBitQ) estimates; with
     ``dataset`` and ``params.refine_ratio > 1`` (default 8) the scan keeps
     ``k * refine_ratio`` candidates and re-ranks them exactly. ``mode``:
-    ``"fused"``, ``"probe"`` or ``"auto"`` (fused from 128 queries when
-    eligible); queries are searched in batches of ``query_batch`` with a
+    ``"fused"``, ``"scan"``, ``"probe"`` or ``"auto"`` (from 128 queries,
+    fused on a CUDA index when eligible, scan elsewhere); queries are searched in batches of ``query_batch`` with a
     zero-padded tail. A CUDA index runs the kernels and never falls back:
     a kernel that fails raises."""
     if params is None:
@@ -959,7 +983,7 @@ def search(
                 and index.metric in _SUPPORTED)
     wants_f32_lut = params.lut_dtype == torch.float32
     if mode == "auto":
-        mode = "fused" if nq >= 128 and fused_ok and not wants_f32_lut else "probe"
+        mode = ivf_common.auto_search_mode(dev, nq, fused_ok and not wants_f32_lut)
     expects(mode in ("scan", "probe", "fused"), "mode must be auto|scan|probe|fused, got %r",
             mode)
     if mode == "scan":
@@ -987,6 +1011,7 @@ def search(
         code_mode, ksub = fused_code_layout(index)
         books = nibble_books(index.pq_centers) if index.additive else index.pq_centers
         rank, group = fused_rank_group(index, params)
+        tables = _fused_group_tables(index, group) if filter_bits is None else None
 
         def run(qc):
             return ivf_pq_fused_search(
@@ -995,6 +1020,7 @@ def search(
                 metric=index.metric, qt=params.fused_qt, probe_factor=params.fused_probe_factor,
                 group=group, merge=params.fused_merge, code_mode=code_mode, ksub=ksub,
                 extract_every=params.fused_extract_every, decode_cols=params.fused_decode_cols,
+                tables=tables,
             )
 
         return _batched(run, queries, query_batch)
@@ -1020,7 +1046,8 @@ def _rabitq_modes(index: IvfPqIndex, queries, k: int, params: IvfPqSearchParams,
     if mode == "scan":
         ivf_common.scan_mode_not_ported("ivf_pq (rabitq)")
     if mode == "auto":
-        mode = "fused" if queries.shape[0] >= 128 and fused_ok else "probe"
+        # no RaBitQ scan yet: a CPU index takes the probe path
+        mode = ivf_common.auto_search_mode(index.device, queries.shape[0], fused_ok, scan_ok=False)
     expects(mode in ("probe", "fused"), "mode must be auto|probe|fused, got %r", mode)
     if mode == "fused":
         expects(fused_ok, "fused rabitq mode needs a supported metric")

@@ -33,7 +33,11 @@ kernel cannot be built or launched) and the plain PyTorch version
 merges approximate it, so any ``merge`` maps to the exact one here. The
 TPU kernel's multi-hot matmul decode and its VMEM gates do not apply:
 the Hopper kernel reads the LUT from shared memory, so the one limit is
-that one query's LUT (``K * 2`` bytes) fits there.
+that one query's LUT (``K * 2`` bytes) fits there. The wrapper lists
+each unit's 32-row groups that hold a valid slot (:func:`group_tables`),
+which the kernel scores 8 at a time, and each tile's chunks that hold
+work (:func:`work_lists`), which the CTAs sharing the tile take from a
+counter as they go.
 """
 from __future__ import annotations
 
@@ -52,18 +56,43 @@ from raft_tpu_torch.utils.math import cdiv
 
 _SUPPORTED = frozenset({DistanceType.L2Expanded, DistanceType.L2SqrtExpanded, DistanceType.InnerProduct})
 
-#: most queries one CTA holds (``QB_MAX`` in the .cu)
-MAX_QUERIES_PER_CTA = 16
+#: the kernel's query counts per CTA (its ``QB`` template), most first
+QUERIES_PER_CTA = (8, 4, 1)
+MAX_QUERIES_PER_CTA = QUERIES_PER_CTA[0]
+#: LUT columns between query groups at the most queries a CTA (``STRIDE``):
+#: the widest LUT such a CTA takes
+_STRIDE = 2048
+#: CTAs an SM runs at once (``CTAS_PER_SM``, the kernel's launch bound)
+_CTAS_PER_SM = 3
 #: code rows one CTA scores per step, one per thread (``R`` in the .cu)
-_ROWS_PER_CHUNK = 256
+ROWS_PER_CHUNK = 256
+#: candidates a query's buffer holds: two chunks' (``CAP`` in the .cu)
+_CANDIDATES = 2 * ROWS_PER_CHUNK
+#: rows of one weight unit of a chunk: a warp's rows
+_ROW_GROUP = 32
+#: chunks a CTA takes from its (tile, query group)'s work list at a time
+#: (``ITEM`` in the .cu)
+CHUNKS_PER_ITEM = 8
 #: dynamic shared memory one block may use on an H100 (227 KB)
 SMEM_LIMIT_BYTES = 232448
 _MODE_CODE = {"u8": 0, "nib8": 1, "p4": 2, "b3": 3, "b5": 5, "b6": 6, "b7": 7}
 
 _SIGNATURES = {
     "pq_scan_fused_pq_topk":
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+    "pq_scan_layout": [ctypes.c_void_p],
+    "pq_scan_smem_bytes": [ctypes.c_int] * 4,
 }
+#: the constants above as ``pq_scan_layout`` reports the kernel's: the most
+#: queries a CTA, STRIDE, CTAs an SM, rows a chunk, CAP, ITEM, 32-row groups
+#: a chunk, rows a group; :func:`build_kernel` checks they agree
+_LAYOUT = (MAX_QUERIES_PER_CTA, _STRIDE, _CTAS_PER_SM, ROWS_PER_CHUNK, _CANDIDATES,
+           CHUNKS_PER_ITEM, ROWS_PER_CHUNK // _ROW_GROUP, _ROW_GROUP)
+#: the stage clock's stages (``csrc/stage_clock.cuh``); the record of
+#: :func:`fused_pq_topk_stages` holds them, the warps' and the CTA's total
+#: cycles, then the counts of ``COUNTS``
+STAGES = ("lut", "q_dot_c", "codes", "score_write", "topk", "barrier")
+COUNTS = ("candidates", "merges")
 
 
 def supported_metric(metric: DistanceType) -> bool:
@@ -82,8 +111,14 @@ def code_groups(code_mode: str, ksub: int, bpr: int) -> Tuple[int, int]:
 
 def build_kernel(verbose: bool = False) -> Tuple[ctypes.CDLL, float, str]:
     """Build ``csrc/pq_scan.cu`` for ``sm_90a`` (once per source version)
-    and load it. Returns ``(library, build seconds, compiler output)``."""
-    return build_library("pq_scan.cu", _SIGNATURES, verbose=verbose)
+    and load it, checking that the kernel's layout is the one this module
+    mirrors. Returns ``(library, build seconds, compiler output)``."""
+    lib, seconds, log = build_library("pq_scan.cu", _SIGNATURES, verbose=verbose)
+    got = (ctypes.c_int * len(_LAYOUT))()
+    lib.pq_scan_layout(got)
+    if tuple(got) != _LAYOUT:
+        raise RaftError(f"pq_scan.cu's layout {tuple(got)} is not the wrapper's {_LAYOUT}")
+    return lib, seconds, log
 
 
 def pq_lut(q_rot, books) -> torch.Tensor:
@@ -122,15 +157,65 @@ def lookup_columns(codes, code_mode: str, ksub: int) -> torch.Tensor:
     return torch.arange(n_codes, device=dev) * ksub + val
 
 
+def cta_smem_bytes(qb: int, K: int, k: int, g_lists: int) -> int:
+    """Shared memory of one CTA of ``qb`` queries: the bf16 LUT rows (at
+    the most queries a CTA laid out 2048 columns apart), and per query a
+    candidate buffer of two 256-row chunks (8 B an entry), its top-k list
+    (8 B an entry), its q.c terms and its candidate count, and the CTA's
+    next work item. The kernel's own count (``pq_scan_smem_bytes``) is
+    held to it at every launch."""
+    lut_cols = _STRIDE if qb == MAX_QUERIES_PER_CTA else K
+    return 2 * qb * lut_cols + qb * (8 * _CANDIDATES + 8 * k + 4 * g_lists + 4) + 4
+
+
 def queries_per_cta(K: int, k: int, g_lists: int) -> int:
-    """Queries one CTA holds: up to 16, as many as the 227 KB of shared
-    memory allow for their bf16 LUT rows, scores, q.c terms and top-k
-    lists. Raises when not even one query's LUT fits."""
-    per_query = 2 * K + 4 * _ROWS_PER_CHUNK + 4 * g_lists + 8 * k
-    qb = min(MAX_QUERIES_PER_CTA, SMEM_LIMIT_BYTES // per_query)
-    expects(qb >= 1, "fused_pq_topk: one query's LUT (%d columns, %d bytes) does not fit the "
+    """Queries one CTA holds: the most of 8 (LUTs of at most 2048
+    columns), 4 and 1 whose shared memory (:func:`cta_smem_bytes`) fits
+    the 227 KB a block may use. Raises when not even one query's LUT
+    fits."""
+    fits = [qb for qb in QUERIES_PER_CTA if (qb < MAX_QUERIES_PER_CTA or K <= _STRIDE)
+            and cta_smem_bytes(qb, K, k, g_lists) <= SMEM_LIMIT_BYTES]
+    expects(bool(fits), "fused_pq_topk: one query's LUT (%d columns, %d bytes) does not fit the "
             "%d bytes of shared memory", K, 2 * K, SMEM_LIMIT_BYTES)
-    return qb
+    return fits[0]
+
+
+def group_tables(valid) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's work in each unit: its 32-row groups (a warp's rows)
+    that hold a valid slot, in row order, taken 8 at a time (a 256-row
+    chunk). ``valid [n_units, 1, gm]`` bool (the slots of finite ``ln``)
+    -> ``(groups, chunk_w)``: int32 ``[n_units, n_groups]``, each unit's
+    valid groups first, and int32 ``[n_units, cdiv(n_groups, 8)]``, the
+    groups in each chunk (0 past the unit's last). They depend on the
+    index and the filter only, so a search without a filter keeps them
+    with its index."""
+    n_units = valid.shape[0]
+    valid = valid.reshape(n_units, -1)
+    n_groups = cdiv(valid.shape[1], _ROW_GROUP)
+    pad = n_groups * _ROW_GROUP - valid.shape[1]
+    if pad:
+        valid = torch.nn.functional.pad(valid, (0, pad))
+    gvalid = valid.reshape(n_units, n_groups, _ROW_GROUP).any(dim=2)
+    groups = torch.argsort((~gvalid).to(torch.int8), dim=1, stable=True).to(torch.int32)
+    per_chunk = ROWS_PER_CHUNK // _ROW_GROUP
+    starts = per_chunk * torch.arange(cdiv(n_groups, per_chunk), device=valid.device)
+    chunk_w = torch.clamp(gvalid.sum(dim=1, keepdim=True) - starts[None, :], 0, per_chunk)
+    return groups, chunk_w.to(torch.int32)
+
+
+def work_lists(tile_probes, probe_valid, chunk_w) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each tile's chunks that hold work, in the kernel's step-major order
+    (chunk ``g`` = probe step ``g // n_chunks``, valid groups ``(g %
+    n_chunks) * 8 ...`` of its unit, as :func:`group_tables` lists them):
+    ``(work, n_work)``, int32 ``[n_qt, P * n_chunks]`` with each tile's
+    ``n_work`` chunks of weight > 0 of its valid steps first. The kernel's
+    CTAs of a (tile, query group) take them ``CHUNKS_PER_ITEM`` at a time
+    from a shared counter. Computed on the tables' device without a sync."""
+    n_qt, P = tile_probes.shape
+    w = chunk_w[tile_probes.to(torch.int64)]  # [n_qt, P, n_chunks]
+    has = ((probe_valid > 0)[:, :, None] & (w > 0)).reshape(n_qt, -1)
+    work = torch.argsort((~has).to(torch.int8), dim=1, stable=True).to(torch.int32)
+    return work, has.sum(dim=1, dtype=torch.int32)
 
 
 def _check_args(codes, ln, w, q_rot, centers_rot, tile_probes, probe_valid, k, metric, qt,
@@ -237,10 +322,18 @@ def fused_pq_topk_reference(
 
 
 def default_split(ctas: int, n_steps: int, device) -> int:
-    """CTAs that share one (tile, query group)'s units: enough to give
+    """CTAs that share one (tile, query group)'s units (B3): enough to give
     every SM two CTAs, at most ``MAX_SPLIT`` and the probe steps."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return min(MAX_SPLIT, n_steps, cdiv(2 * sms, ctas))
+
+
+def one_wave_split(ctas: int, device) -> int:
+    """CTAs that share one (tile, query group)'s work list (B2): as many as
+    fill the SMs in one wave at ``_CTAS_PER_SM`` an SM, 1 to
+    ``MAX_SPLIT``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(MAX_SPLIT, max(1, _CTAS_PER_SM * sms // ctas))
 
 
 def fused_pq_topk(
@@ -261,6 +354,7 @@ def fused_pq_topk(
     extract_every: int = 0,
     decode_cols: int = 2048,
     n_split: Optional[int] = None,
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the fused probed-list PQ scan; returns ``(scores [nq_pad, k]
     asc, slots [nq_pad, k] i32)`` with slot = unit * gm + row (or -1).
@@ -269,13 +363,40 @@ def fused_pq_topk(
     JAX signature and tune only the TPU kernel; the result is always the
     exact top-k. CUDA tensors launch the kernel (``fused_pq_topk.launches``
     counts the launches); CPU tensors take the plain version. ``n_split``
-    (1-32, None = enough CTAs for two per SM) changes the speed, never
-    the result."""
+    (1-32, None = as many CTAs as fill the SMs in one wave,
+    :func:`one_wave_split`) changes the speed, never the result.
+    ``tables`` is :func:`group_tables` of ``isfinite(ln)`` where the
+    caller keeps it (built here when None)."""
     if q_rot.device.type != "cuda":
         return fused_pq_topk_reference(
             codes, ln, w, q_rot, centers_rot, tile_probes, probe_valid, k=k, metric=metric,
             qt=qt, code_mode=code_mode, ksub=ksub,
         )
+    out_v, out_s, _ = _launch(codes, ln, w, q_rot, centers_rot, tile_probes, probe_valid, k=k,
+                              metric=metric, qt=qt, code_mode=code_mode, ksub=ksub,
+                              n_split=n_split, tables=tables)
+    return out_v, out_s
+
+
+def fused_pq_topk_stages(codes, ln, w, q_rot, centers_rot, tile_probes, probe_valid, *, k: int,
+                         metric: DistanceType, qt: int, code_mode: str = "u8", ksub: int = 16,
+                         n_split: Optional[int] = None) -> torch.Tensor:
+    """One launch of the kernel with its stage clock on (CUDA tensors
+    only): returns int64 ``[CTAs, len(STAGES) + 2 + len(COUNTS)]``, per
+    CTA the cycles of each stage summed over its warps, the warps' total
+    cycles, the CTA's own cycles, the candidates that passed its filter
+    and the 32-wide batches it merged into its lists."""
+    expects(q_rot.device.type == "cuda", "fused_pq_topk_stages: the stage clock runs on the card")
+    return _launch(codes, ln, w, q_rot, centers_rot, tile_probes, probe_valid, k=k, metric=metric,
+                   qt=qt, code_mode=code_mode, ksub=ksub, n_split=n_split, stages=True)[2]
+
+
+def _launch(codes, ln, w, q_rot, centers_rot, tile_probes, probe_valid, *, k: int,
+            metric: DistanceType, qt: int, code_mode: str, ksub: int, n_split: Optional[int],
+            stages: bool = False, tables=None):
+    """Launch ``csrc/pq_scan.cu`` on CUDA tensors; raises if it cannot be
+    built or launched. Returns ``(scores, slots, record)``, the stage
+    clock's record with ``stages`` and None without."""
     _check_args(codes, ln, w, q_rot, centers_rot, tile_probes, probe_valid, k, metric, qt,
                 code_mode, ksub)
     expects(w.dtype == torch.bfloat16, "fused_pq_topk: the LUT must be bf16, got %s", w.dtype)
@@ -290,26 +411,37 @@ def fused_pq_topk(
         expects(t.device == dev, "fused_pq_topk: %s is on %s, queries on %s", name, t.device, dev)
     qb = queries_per_cta(K, k, g_lists)
     if n_split is None:
-        n_split = default_split(cdiv(qt, qb) * n_qt, n_steps, dev)
+        n_split = one_wave_split(cdiv(qt, qb) * n_qt, dev)
     expects(1 <= n_split <= MAX_SPLIT, "fused_pq_topk: n_split=%d outside [1, %d]", n_split, MAX_SPLIT)
+    groups, cw = group_tables(torch.isfinite(ln)) if tables is None else tables
+    work, n_work = work_lists(tile_probes, probe_valid, cw)
+    counters = torch.zeros(n_qt * cdiv(qt, qb), dtype=torch.int32, device=dev)
     cod = codes.contiguous()
     lnc = ln.to(torch.float32).contiguous()
     wc = w.contiguous()
     qr = q_rot.to(torch.float32).contiguous()
     cr = centers_rot.to(torch.float32).contiguous()
     tp = tile_probes.to(torch.int32).contiguous()
-    pv = probe_valid.to(torch.int32).contiguous()
     out_v = torch.empty((nq_pad, k), dtype=torch.float32, device=dev)
     out_s = torch.empty((nq_pad, k), dtype=torch.int32, device=dev)
     part = (n_split, nq_pad, k) if n_split > 1 else (0,)
     part_v = torch.empty(part, dtype=torch.float32, device=dev)
     part_s = torch.empty(part, dtype=torch.int32, device=dev)
+    rec = None
+    if stages:
+        rec = torch.zeros((cdiv(qt, qb) * n_qt * n_split, len(STAGES) + 2 + len(COUNTS)),
+                          dtype=torch.int64, device=dev)
     lib, _, _ = build_kernel()
+    smem = lib.pq_scan_smem_bytes(qb, K, k, g_lists)
+    if smem != cta_smem_bytes(qb, K, k, g_lists):
+        raise RaftError(f"pq_scan.cu asks {smem} B of shared memory for {qb} queries a CTA, "
+                        f"the wrapper counted {cta_smem_bytes(qb, K, k, g_lists)}")
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.pq_scan_fused_pq_topk(
         cod.data_ptr(), lnc.data_ptr(), wc.data_ptr(), qr.data_ptr(), cr.data_ptr(),
-        tp.data_ptr(), pv.data_ptr(), out_v.data_ptr(), out_s.data_ptr(),
-        part_v.data_ptr(), part_s.data_ptr(),
+        tp.data_ptr(), groups.data_ptr(), cw.data_ptr(), work.data_ptr(),
+        n_work.data_ptr(), counters.data_ptr(), out_v.data_ptr(), out_s.data_ptr(),
+        part_v.data_ptr(), part_s.data_ptr(), None if rec is None else rec.data_ptr(),
         n_split, n_qt, gm, g_lists, bpr, K, rot_dim, qt, n_steps, k,
         0 if metric != DistanceType.InnerProduct else 1, _MODE_CODE[code_mode], ksub, qb,
         stream,
@@ -317,7 +449,7 @@ def fused_pq_topk(
     if err != 0:
         raise RaftError(f"pq_scan kernel launch failed (cudaError {err})")
     fused_pq_topk.launches += 1
-    return out_v, out_s
+    return out_v, out_s, rec
 
 
 fused_pq_topk.launches = 0
@@ -434,11 +566,14 @@ def ivf_pq_fused_search(
     ksub: int = 16,
     extract_every: int = 0,
     decode_cols: int = 2048,
+    tables: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """IVF-PQ search through the fused scan (``pq_scan.py:414-518``).
     Returns ``(distances [nq, k] f32, indices [nq, k] i32)``: exact ADC
     scores of the (possibly additive-nibble) codebooks, to be re-ranked
-    with :func:`raft_tpu_torch.neighbors.refine.refine`."""
+    with :func:`raft_tpu_torch.neighbors.refine.refine`. ``tables``: the
+    kernel's group tables, where the caller keeps them
+    (:func:`fused_pq_topk`)."""
     ci = code_scan_inputs(
         centers, centers_rot, center_rank, rotation, codes, list_indices, queries, filter_bits,
         n_probes=n_probes, metric=metric, qt=qt, probe_factor=probe_factor, group=group,
@@ -447,6 +582,7 @@ def ivf_pq_fused_search(
         ci.codes, pq_epilogue(ci.valid, rot_sqnorms, metric), pq_lut(ci.q_rot, books), ci.q_rot,
         ci.centers_rot, ci.tile_probes, ci.probe_valid, k=k, metric=metric, qt=qt, merge=merge,
         code_mode=code_mode, ksub=ksub, extract_every=extract_every, decode_cols=decode_cols,
+        tables=tables,
     )
     return fused_postprocess(vals, slots, list_indices, ci.q_rot, ci.order_pad,
                              nq=queries.shape[0], k=k, metric=metric)

@@ -32,7 +32,6 @@ from raft_tpu_torch.ops.cuda_build import build_library
 from raft_tpu_torch.ops.distance import DistanceType
 from raft_tpu_torch.ops.ivf_scan import MAX_K, MAX_SPLIT
 from raft_tpu_torch.ops.pq_scan import (
-    MAX_QUERIES_PER_CTA,
     SMEM_LIMIT_BYTES,
     code_scan_inputs,
     default_split,
@@ -43,6 +42,7 @@ from raft_tpu_torch.ops.pq_scan import (
 from raft_tpu_torch.utils.math import cdiv
 
 _ROWS_PER_CHUNK = 256  # ``R`` in the .cu
+_MAX_QUERIES_PER_CTA = 16  # ``QB_MAX`` in the .cu
 
 _SIGNATURES = {
     "rabitq_scan_fused_rabitq_topk":
@@ -61,7 +61,7 @@ def queries_per_cta(rot_dim: int, k: int, g_lists: int) -> int:
     """Queries one CTA holds: up to 16, within 227 KB of shared memory for
     their f32 rotated queries, scores, q.c terms and top-k lists."""
     per_query = 4 * rot_dim + 4 + 4 * _ROWS_PER_CHUNK + 4 * g_lists + 8 * k
-    qb = min(MAX_QUERIES_PER_CTA, SMEM_LIMIT_BYTES // per_query)
+    qb = min(_MAX_QUERIES_PER_CTA, SMEM_LIMIT_BYTES // per_query)
     expects(qb >= 1, "fused_rabitq_topk: one query (rot_dim %d) does not fit shared memory", rot_dim)
     return qb
 

@@ -1,12 +1,17 @@
 """Batched top-k selection (``raft_tpu.ops.select_k`` counterpart).
 
-The tie order is ``lax.top_k``'s: among equal values the lower column
-comes first. ``torch.topk`` does not promise that, so :func:`select_k`
-uses ``torch.topk`` only to find each row's k-th value, then keeps every
-entry better than it and, of the entries equal to it, the first ones in
-column order, exactly k a row, and finishes with a stable sort of those
-k. (Keeping every entry equal to the k-th value would sort whole rows
-where many entries tie there, as a masked row of ``inf`` does.)
+The order is ``lax.top_k``'s. Among equal values the lower column comes
+first; ``torch.topk`` does not promise that, so on wide rows
+:func:`select_k` takes from ``torch.topk`` only the entries better than
+the k-th value, and finds the first ones equal to it in column order by
+a binary search over the running count of ties. NaN is ordered by the
+total order of the float bits: a NaN with the sign bit clear ranks after
+``+inf``, one with it set before ``-inf``. So with ``select_min=True``
+and ordinary NaNs the finite entries come first, then the NaNs at their
+own columns; with ``select_min=False`` the NaNs come first. Both paths
+select over integer keys of that order (one integer view and a where);
+``-0`` ties ``+0`` (``lax.top_k`` puts ``-0`` first; the port's ring
+exchange and its gather merge tie them).
 """
 from __future__ import annotations
 
@@ -17,28 +22,36 @@ import torch
 from raft_tpu_torch.core.errors import expects
 
 
-def _stable_smallest(v: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k smallest per row of ``v`` [b, n], lower column first on ties.
-    Returns ``(values, int64 columns)``."""
+_INT_OF_SIZE = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _order_keys(v: torch.Tensor) -> torch.Tensor:
+    """Integer keys in the ascending order of ``v``: a float's bits with
+    the sign-magnitude of negative values turned into two's complement
+    (``-0`` lands on ``+0``). Integer values are their own keys."""
+    if not v.is_floating_point():
+        return v
+    itype = _INT_OF_SIZE[v.element_size()]
+    bits = v.view(itype)
+    # negative: -(bits & MAX) = MIN - bits; the other branch's wrap is discarded
+    return torch.where(bits < 0, torch.iinfo(itype).min - bits, bits)
+
+
+def _stable_best(v: torch.Tensor, k: int, largest: bool) -> torch.Tensor:
+    """Columns of the k best per row of the integer keys ``v`` [b, n]
+    (smallest, or largest with ``largest``), best first and the lower
+    column first on ties: int64 ``[b, k]``, every column < n."""
     b, n = v.shape
     if 8 * k >= n or n <= 4096:
-        vals, pos = torch.sort(v, dim=1, stable=True)
-        return vals[:, :k], pos[:, :k]
-    kth = torch.topk(v, k, dim=1, largest=False, sorted=False).values.max(dim=1, keepdim=True).values
-    less = v < kth
-    eq = v == kth
-    need = k - torch.sum(less, dim=1, keepdim=True, dtype=torch.int32)
-    cand = less | (eq & (torch.cumsum(eq, dim=1, dtype=torch.int32) <= need))  # k a row
-    # compact the candidates in column order: rank = running count
-    rank = torch.cumsum(cand, dim=1, dtype=torch.int32) - 1
-    dest = torch.where(cand, rank, k).to(torch.int64)
-    cols = torch.arange(n, device=v.device).expand(b, n)
-    buf_v = torch.full((b, k + 1), worst_value(v.dtype), dtype=v.dtype, device=v.device)
-    buf_c = torch.full((b, k + 1), n, dtype=torch.int64, device=v.device)
-    buf_v.scatter_(1, dest, v)
-    buf_c.scatter_(1, dest, cols)
-    vals, order = torch.sort(buf_v[:, :k], dim=1, stable=True)
-    return vals, torch.gather(buf_c[:, :k], 1, order)
+        return torch.sort(v, dim=1, stable=True, descending=largest).indices[:, :k]
+    top, top_c = torch.topk(v, k, dim=1, largest=largest, sorted=True)
+    kth = top[:, k - 1 :]
+    tied = top == kth  # the last slots: which of the k-th value's ties to take
+    ties = torch.cumsum(v == kth, dim=1, dtype=torch.int32)  # running count, non-decreasing
+    first = torch.searchsorted(ties, torch.cumsum(tied, dim=1, dtype=torch.int32))
+    cols = torch.sort(torch.where(tied, first, top_c), dim=1).values
+    order = torch.sort(torch.gather(v, 1, cols), dim=1, stable=True, descending=largest).indices
+    return torch.gather(cols, 1, order)
 
 
 def select_k(
@@ -56,11 +69,8 @@ def select_k(
     expects(values.ndim == 2, "select_k expects [batch, n] values, got ndim=%d", values.ndim)
     n = values.shape[1]
     expects(0 < k <= n, "k=%d out of range for n=%d columns", k, n)
-    if select_min:
-        vals, pos = _stable_smallest(values, k)
-    else:
-        vals, pos = _stable_smallest(-values, k)
-        vals = -vals
+    pos = _stable_best(_order_keys(values), k, largest=not select_min)
+    vals = torch.gather(values, 1, pos)
     if indices is not None:
         return vals, torch.gather(torch.as_tensor(indices), 1, pos)
     return vals, pos.to(torch.int32)

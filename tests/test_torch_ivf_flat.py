@@ -16,6 +16,7 @@ from raft_tpu.neighbors import ivf_flat as jivf
 from raft_tpu_torch.core.bitset import Bitset as TBitset
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.neighbors import brute_force as tbf
+from raft_tpu_torch.neighbors import ivf_common
 from raft_tpu_torch.neighbors import ivf_flat as tivf
 from raft_tpu_torch.serve import ServingEngine, bucket_for
 from raft_tpu_torch.stats.recall import neighborhood_recall
@@ -221,13 +222,22 @@ def test_serving_padded_batches_preserve_results(corpus, pair):
 
 
 def test_auto_mode_picks_fused_from_128_queries(corpus, monkeypatch, pair):
+    """``auto`` takes the fused kernel from 128 queries on a CUDA index
+    only; this CPU index takes the dense scan from 128 queries, as the JAX
+    package does off a TPU, and the probe path below."""
+    cuda = torch.device("cuda")
+    assert ivf_common.auto_search_mode(cuda, 128, True) == "fused"
+    assert ivf_common.auto_search_mode(cuda, 127, True) == "probe"
+    assert ivf_common.auto_search_mode(cuda, 128, False) == "probe"
     _, q = corpus
     _, ti = pair("sqeuclidean")
     calls = []
-    real = tivf.ivf_flat_fused_search
-    monkeypatch.setattr(tivf, "ivf_flat_fused_search", lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    for name in ("ivf_flat_fused_search", "_ivf_flat_scan_impl", "_probe_search"):
+        real = getattr(tivf, name)
+        monkeypatch.setattr(tivf, name, lambda *a, _n=name, _f=real, **kw: calls.append(_n) or _f(*a, **kw))
     qq = torch.from_numpy(np.concatenate([q, q, q]))  # 144 rows
     tivf.search(ti, qq[:127], K)
-    assert not calls
+    assert set(calls) == {"_probe_search"}
+    calls.clear()
     tivf.search(ti, qq[:128], K)
-    assert calls
+    assert set(calls) == {"_ivf_flat_scan_impl"}

@@ -20,6 +20,7 @@ from raft_tpu.neighbors import ivf_pq as jivf
 from raft_tpu_torch.core.bitset import Bitset as TBitset
 from raft_tpu_torch.core.errors import LogicError
 from raft_tpu_torch.core.resources import Resources
+from raft_tpu_torch.neighbors import ivf_common
 from raft_tpu_torch.neighbors import ivf_flat as tflat
 from raft_tpu_torch.neighbors import ivf_pq as tivf
 from raft_tpu_torch.ops import pq_scan as tpq_scan
@@ -381,21 +382,73 @@ def test_serving_bucket_aligned_equals_direct_search(corpus, pair, mode):
 
 @pytest.mark.parametrize("kind", ["nibble", "rabitq"])
 def test_auto_mode_picks_fused_from_128_queries(corpus, pair, monkeypatch, kind):
+    """``auto`` takes the fused kernel from 128 queries on a CUDA index
+    only (an f32 LUT request keeps PQ off it); this CPU index takes the
+    dense scan from 128 queries (RaBitQ, with no scan yet, the probe path)
+    and the probe path below."""
+    cuda = torch.device("cuda")
+    assert ivf_common.auto_search_mode(cuda, 128, True) == "fused"
+    assert ivf_common.auto_search_mode(cuda, 127, True) == "probe"
+    assert ivf_common.auto_search_mode(cuda, 128, False) == "probe"
     _, q, _ = corpus
     _, _, ti = pair(kind)
     calls = []
-    name = "ivf_rabitq_fused_search" if kind == "rabitq" else "ivf_pq_fused_search"
-    real = getattr(tivf, name)
-    monkeypatch.setattr(tivf, name, lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    names = (("ivf_rabitq_fused_search", "_rabitq_probe_search") if kind == "rabitq"
+             else ("ivf_pq_fused_search", "_ivf_pq_scan_impl", "_probe_search"))
+    for name in names:
+        real = getattr(tivf, name)
+        monkeypatch.setattr(tivf, name, lambda *a, _n=name, _f=real, **kw: calls.append(_n) or _f(*a, **kw))
+    # what search() asks the rule: the f32 LUT request must clear fused_ok
+    asked = []
+    rule = ivf_common.auto_search_mode
+    monkeypatch.setattr(ivf_common, "auto_search_mode", lambda dev, nq, fused_ok, **kw:
+                        asked.append(fused_ok) or rule(dev, nq, fused_ok, **kw))
+    probe = names[-1]
     qq = torch.from_numpy(np.concatenate([q, q, q]))  # 144 rows
     p = tivf.IvfPqSearchParams(n_probes=4, refine_ratio=1)
     tivf.search(ti, qq[:127], K, p)
-    assert not calls
+    assert set(calls) == {probe}
+    calls.clear()
     tivf.search(ti, qq[:128], K, p)
-    assert calls
+    assert set(calls) == ({probe} if kind == "rabitq" else {"_ivf_pq_scan_impl"})
     calls.clear()
     tivf.search(ti, qq[:128], K, dataclasses.replace(p, lut_dtype=torch.float32))
-    assert bool(calls) == (kind == "rabitq")  # an f32 LUT request keeps PQ on the probe path
+    assert set(calls) == ({probe} if kind == "rabitq" else {"_ivf_pq_scan_impl"})
+    # RaBitQ has no LUT: its kernel stays eligible whatever lut_dtype says
+    assert asked == ([True] * 3 if kind == "rabitq" else [True, True, False])
+
+
+@pytest.mark.parametrize("with_filter", [False, True])
+def test_fused_search_keeps_group_tables_on_the_index(corpus, pair, monkeypatch, with_filter):
+    """Without a filter, B2's group tables are built at the first fused
+    search and handed to every later one, equal to what the wrapper
+    builds from the search's ``ln``; a filtered search passes none (the
+    wrapper builds them from its own ``ln``)."""
+    _, q, _ = corpus
+    _, _, ti = pair("nibble")
+    ti.__dict__.pop("_fused_group_tables", None)
+    built, passed = [], []
+    real_tables, real_search = tivf.group_tables, tivf.ivf_pq_fused_search
+    monkeypatch.setattr(tivf, "group_tables", lambda v: built.append(1) or real_tables(v))
+    monkeypatch.setattr(tivf, "ivf_pq_fused_search",
+                        lambda *a, **kw: passed.append(kw["tables"]) or real_search(*a, **kw))
+    keep = TBitset.from_mask(torch.from_numpy(np.random.default_rng(5).random(N) < 0.5))
+    p = tivf.IvfPqSearchParams(n_probes=4, refine_ratio=1)
+    for _ in range(2):
+        tivf.search(ti, torch.from_numpy(q), K, p, mode="fused",
+                    prefilter=keep if with_filter else None)
+    if with_filter:
+        assert built == [] and passed == [None, None]
+        return
+    assert len(built) == 1 and passed[0] is passed[1]
+    rank, group = tivf.fused_rank_group(ti, p)
+    ci = tpq_scan.code_scan_inputs(ti.centers, ti.centers_rot, rank, ti.rotation, ti.codes,
+                                   ti.list_indices, torch.from_numpy(q), None, n_probes=4,
+                                   metric=ti.metric, qt=p.fused_qt,
+                                   probe_factor=p.fused_probe_factor, group=group)
+    ln = tpq_scan.pq_epilogue(ci.valid, ti.rot_sqnorms, ti.metric)
+    for kept, fresh in zip(passed[0], real_tables(torch.isfinite(ln))):
+        assert torch.equal(kept, fresh)
 
 
 def test_scan_mode_is_not_ported_yet(corpus, pair):

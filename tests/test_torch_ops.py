@@ -89,6 +89,31 @@ def test_select_k_rows_with_few_finite_values(select_min):
     assert np.array_equal(tv.numpy(), np.asarray(jv))
 
 
+@pytest.mark.parametrize("n,k", [(50, 10), (5000, 10), (9000, 40)])  # sort path, top-k path
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("with_indices", [False, True])
+def test_select_k_orders_nan_as_lax_top_k(n, k, select_min, with_indices):
+    """NaN of either sign, as ``lax.top_k`` orders it: rows with fewer than
+    k non-NaN entries, a row of NaN only, ties; every column < n."""
+    rng = np.random.default_rng(n + k)
+    vals = rng.integers(0, 5, size=(8, n)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.3] = np.nan
+    vals[rng.random(vals.shape) < 0.1] = -np.float32(np.nan)
+    vals[0] = np.nan
+    vals[0, :3] = [1.0, 2.0, 3.0]  # three finite entries, k > 3
+    vals[1] = -np.float32(np.nan)
+    vals[2, : n // 2] = np.inf
+    ids = rng.permutation(8 * n).reshape(8, n).astype(np.int32)
+    jv, ji = jsel.select_k(jnp.asarray(vals), k, select_min=select_min,
+                           indices=jnp.asarray(ids) if with_indices else None)
+    tv, ti = tsel.select_k(torch.from_numpy(vals), k, select_min=select_min,
+                           indices=torch.from_numpy(ids) if with_indices else None)
+    assert np.array_equal(ti.numpy(), np.asarray(ji))
+    assert np.array_equal(tv.numpy().view(np.uint32), np.asarray(jv).view(np.uint32))
+    if not with_indices:
+        assert int(ti.max()) < n and int(ti.min()) >= 0
+
+
 def test_running_merge_matches():
     rng = np.random.default_rng(3)
     acc_v = np.sort(rng.integers(0, 5, (6, 4)).astype(np.float32), axis=1)
@@ -98,6 +123,45 @@ def test_running_merge_matches():
     jv, ji = jsel.running_merge(*map(jnp.asarray, (acc_v, acc_i, new_v, new_i)))
     tv, ti = tsel.running_merge(*map(torch.from_numpy, (acc_v, acc_i, new_v, new_i)))
     assert np.array_equal(ti.numpy(), np.asarray(ji)) and np.array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("n,k", [(300, 7), (9000, 25)])  # sort path, top-k path
+@pytest.mark.parametrize("select_min", [True, False])
+def test_select_k_integer_values_match(n, k, select_min):
+    """Integer values are their own keys: ties by column on both paths."""
+    rng = np.random.default_rng(n)
+    vals = rng.integers(-4, 4, size=(5, n)).astype(np.int32)
+    jv, ji = jsel.select_k(jnp.asarray(vals), k, select_min=select_min)
+    tv, ti = tsel.select_k(torch.from_numpy(vals), k, select_min=select_min)
+    assert np.array_equal(ti.numpy(), np.asarray(ji)) and np.array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("elems", [1, 3 * 6 * 50, 1 << 23])  # a probe, three, all of them
+@pytest.mark.parametrize("select_min", [True, False])
+def test_merge_probes_equals_a_merge_a_probe(monkeypatch, elems, select_min):
+    """The probe paths merge several probes' tiles at once: the same ids
+    and value bits as the reference's merge a probe, ties and masked slots
+    included."""
+    from raft_tpu_torch.neighbors import ivf_common
+
+    rng = np.random.default_rng(4)
+    nq, cols, n_probes, k = 6, 50, 7, 12
+    worst = np.float32(np.inf if select_min else -np.inf)
+    tiles = []
+    for p in range(n_probes):
+        d = rng.integers(0, 6, size=(nq, cols)).astype(np.float32)
+        ids = (p * cols + np.arange(cols, dtype=np.int32))[None, :].repeat(nq, 0)
+        masked = rng.random((nq, cols)) < 0.3
+        tiles.append((torch.from_numpy(np.where(masked, worst, d)),
+                      torch.from_numpy(np.where(masked, -1, ids).astype(np.int32))))
+    acc_v = torch.full((nq, k), float(worst))
+    acc_i = torch.full((nq, k), -1, dtype=torch.int32)
+    for d, i in tiles:
+        acc_v, acc_i = tsel.running_merge(acc_v, acc_i, d, i, select_min=select_min)
+    monkeypatch.setattr(ivf_common, "PROBE_MERGE_ELEMS", elems)
+    got_v, got_i = ivf_common.merge_probes(iter(tiles), nq=nq, k=k, n_probes=n_probes, cols=cols,
+                                           select_min=select_min, device="cpu")
+    assert torch.equal(got_i, acc_i) and torch.equal(got_v, acc_v)
 
 
 @pytest.mark.parametrize("metric", METRICS)

@@ -177,11 +177,107 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
 
 def test_shared_memory_limit_is_checked():
     """One query's LUT must fit the 227 KB of shared memory: 128 KB at
-    pq_dim=256 with ksub=256 does, a LUT twice as wide does not."""
+    pq_dim=256 with ksub=256 does, a LUT twice as wide does not. A CTA
+    holds 8 (LUTs of at most 2048 columns), 4 or 1 queries: their bf16
+    LUT rows, per query a candidate buffer of two 256-row chunks (8 B an
+    entry), its top-k list (8 B an entry), its q.c terms and its count, and
+    the CTA's next work item."""
     assert tpq.queries_per_cta(256 * 256, 80, 8) == 1
-    assert tpq.queries_per_cta(64 * 32, 80, 8) == tpq.MAX_QUERIES_PER_CTA
+    assert tpq.queries_per_cta(64 * 32, 80, 8) == tpq.MAX_QUERIES_PER_CTA == 8
+    assert tpq.queries_per_cta(64 * 32, 256, 8) == 8  # nib8 at pq_dim 64, the largest k
+    assert tpq.queries_per_cta(64 * 256, 80, 8) == 4  # u8 at ksub 256
+    assert tpq.queries_per_cta(64 * 128, 80, 8) == 4  # b7 codes
+    assert tpq.queries_per_cta(16 * 128, 256, 8) == 8  # u8 ksub 16 at pq_dim 128
+    assert tpq.queries_per_cta(16 * 129, 10, 8) == 4  # past 8 queries' 2048 columns
+    # the LUT, per query its buffers, list, q.c terms and count, and the next work item
+    assert tpq.cta_smem_bytes(8, 512, 80, 8) == 8 * 2048 * 2 + 8 * (4096 + 640 + 32 + 4) + 4
+    assert tpq.cta_smem_bytes(4, 512, 80, 8) == 4 * 512 * 2 + 4 * (4096 + 640 + 32 + 4) + 4
+    assert 3 * (tpq.cta_smem_bytes(8, 2048, 80, 8) + 1024) <= 228 * 1024  # three an SM
+    for K, k, g in ((2048, 80, 8), (16384, 80, 8), (8192, 10, 1), (65536, 256, 8), (512, 80, 8)):
+        qb = tpq.queries_per_cta(K, k, g)
+        assert qb in tpq.QUERIES_PER_CTA
+        assert tpq.cta_smem_bytes(qb, K, k, g) <= tpq.SMEM_LIMIT_BYTES
+        bigger = [b for b in tpq.QUERIES_PER_CTA if b > qb]
+        assert all(tpq.cta_smem_bytes(b, K, k, g) > tpq.SMEM_LIMIT_BYTES or (b == 8 and K > 2048)
+                   for b in bigger)
     with pytest.raises(LogicError):
         tpq.queries_per_cta(512 * 256, 10, 8)
+
+
+def test_kernel_layout_matches_the_wrapper():
+    """The constants the wrapper mirrors from ``csrc/pq_scan.cu`` (the
+    built library reports them too, and ``build_kernel`` checks that on
+    the card) and its shared-memory count, read from the source."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tpq.__file__).parent.parent / "csrc" / "pq_scan.cu").read_text()
+    const = {name: expr for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src)}
+    env = {}
+    for name, expr in const.items():
+        env[name] = eval(expr, {}, dict(env))  # literals and earlier names only
+    assert tpq._LAYOUT == (env["QB_MAX"], env["STRIDE"], env["CTAS_PER_SM"], env["R"], env["CAP"],
+                           env["ITEM"], env["WARPS"], 32)
+    body = re.search(r"size_t cta_smem_bytes\(int qb, int K, int k, int G\) \{(.*?)\n\}", src,
+                     re.S).group(1)
+    expr = " ".join(body.replace("return", "").replace("(size_t)", "").replace(";", "").split())
+    expr = expr.replace("sizeof(float)", "4").replace("sizeof(int)", "4")
+    expr = re.sub(r"\(qb == QB_MAX \? STRIDE : K\)", "(STRIDE if qb == QB_MAX else K)", expr)
+    for K, k, g in ((2048, 80, 8), (16384, 80, 8), (512, 10, 1)):
+        for qb in tpq.QUERIES_PER_CTA:
+            got = eval(expr, {}, dict(env, qb=qb, K=K, k=k, G=g))
+            assert got == tpq.cta_smem_bytes(qb, K, k, g)
+
+
+def test_group_tables_list_the_valid_warp_groups():
+    """Each unit's 32-row groups that hold a valid slot, first and in row
+    order, and how many of them each chunk of 8 takes."""
+    rng = np.random.default_rng(4)
+    n_units, gm = 6, 1200  # a ragged last group
+    ln = np.full((n_units, 1, gm), np.inf, np.float32)
+    for u in range(n_units - 1):
+        ln[u, 0, : rng.integers(0, gm)] = 1.0
+    ln[3, 0, rng.random(gm) < 0.05] = 2.0  # scattered slots (a prefilter)
+    groups, chunk_w = (t.numpy() for t in tpq.group_tables(torch.isfinite(torch.from_numpy(ln))))
+    n_groups = -(-gm // 32)
+    assert groups.shape == (n_units, n_groups) and chunk_w.shape == (n_units, -(-n_groups // 8))
+    assert groups.dtype == np.int32 and chunk_w.dtype == np.int32
+    for u in range(n_units):
+        want = [g for g in range(n_groups) if np.isfinite(ln[u, 0, 32 * g : 32 * g + 32]).any()]
+        assert groups[u, : len(want)].tolist() == want
+        assert sorted(groups[u].tolist()) == list(range(n_groups))
+        assert chunk_w[u].sum() == len(want) and (chunk_w[u] <= 8).all()
+        assert (np.diff(chunk_w[u]) <= 0).all()  # full chunks, then the short one, then none
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, 32])
+def test_work_lists_cover_every_chunk_once_and_balance(n_split):
+    """Each tile's work list holds every chunk of its valid steps that has
+    a valid group, once and in step-major order. Taken as the kernel takes
+    it, ``CHUNKS_PER_ITEM`` at a time by whichever of the ``n_split`` CTAs
+    is free first (a chunk costing its weight), no CTA ends more than one
+    item's weight, at most one unit's rows, above the mean."""
+    rng = np.random.default_rng(n_split)
+    n_units, n_chunks, n_qt, P = 40, 24, 6, 12
+    cw = rng.integers(0, 9, (n_units, n_chunks)).astype(np.int32)
+    cw[rng.random(n_units) < 0.2] = 0  # whole empty units
+    tp = np.stack([rng.permutation(n_units)[:P] for _ in range(n_qt)]).astype(np.int32)
+    pv = (rng.random((n_qt, P)) < 0.8).astype(np.int32)
+    pv[0] = 0  # a tile with no valid step
+    work, n_work = (t.numpy() for t in tpq.work_lists(
+        torch.from_numpy(tp), torch.from_numpy(pv), torch.from_numpy(cw)))
+    assert work.shape == (n_qt, P * n_chunks) and work.dtype == n_work.dtype == np.int32
+    item = tpq.CHUNKS_PER_ITEM
+    for i in range(n_qt):
+        want = [j * n_chunks + c for j in range(P) if pv[i, j] > 0 for c in range(n_chunks)
+                if cw[tp[i, j], c] > 0]
+        assert n_work[i] == len(want) and work[i, : n_work[i]].tolist() == want
+        weight = [int(cw[tp[i, g // n_chunks], g % n_chunks]) for g in want]
+        load = np.zeros(n_split)
+        for i0 in range(0, len(weight), item):
+            load[np.argmin(load)] += sum(weight[i0 : i0 + item])
+        assert load.max() <= load.sum() / n_split + item * cw.max()
+        assert load.max() <= load.sum() / n_split + cw.sum(axis=1).max()
 
 
 def test_bad_arguments_raise():

@@ -142,6 +142,39 @@ def test_pq_scan_mode_matches_jax(corpus, pq_pair, kind):
     assert_close_to_jax(td, tidx, jd, jidx)
 
 
+@pytest.mark.parametrize("family", ["ivf_flat", "ivf_pq"])
+def test_auto_mode_on_a_cpu_index_matches_jax(corpus, flat_pair, pq_pair, family):
+    """``auto`` on a CPU index against JAX's ``auto`` off a TPU: the dense
+    scan from 128 queries, the probe path below (the module's tolerance)."""
+    _, q = corpus
+    qq = np.concatenate([q] * 4)  # 160 rows
+    if family == "ivf_flat":
+        (ji, ti), jmod, tmod = flat_pair(), jflat, tflat
+    else:
+        (ji, ti), jmod, tmod = pq_pair(), jpq, tpq
+    for rows in (160, 128, 40):
+        jd, jidx = jmod.search(ji, qq[:rows], K, n_probes=N_PROBES, refine_ratio=1)
+        td, tidx = tmod.search(ti, torch.from_numpy(qq[:rows]), K, n_probes=N_PROBES,
+                               refine_ratio=1)
+        assert_close_to_jax(td, tidx, jd, jidx)
+        mode = "scan" if rows >= 128 else "probe"
+        sd, sidx = tmod.search(ti, torch.from_numpy(qq[:rows]), K, n_probes=N_PROBES,
+                               refine_ratio=1, mode=mode)
+        assert torch.equal(tidx, sidx) and torch.equal(td, sd)
+
+
+def test_rabitq_auto_on_a_cpu_index_takes_probe(corpus):
+    """RaBitQ has no scan in the port yet: ``auto`` on a CPU index takes the
+    probe path at any batch size."""
+    x, q = corpus
+    ti = tpq.build(x, tpq.IvfPqIndexParams(n_lists=N_LISTS, pq_bits=1, kmeans_n_iters=5), res=CPU)
+    qq = torch.from_numpy(np.concatenate([q] * 4))
+    for rows in (160, 40):
+        auto = tpq.search(ti, qq[:rows], K, n_probes=N_PROBES, refine_ratio=1)
+        probe = tpq.search(ti, qq[:rows], K, n_probes=N_PROBES, refine_ratio=1, mode="probe")
+        assert torch.equal(auto[1], probe[1]) and torch.equal(auto[0], probe[0])
+
+
 def test_scan_mode_batches_with_a_padded_tail(corpus, pq_pair, flat_pair):
     """Query batches of 16 (a zero-padded tail) give the one-batch answer."""
     _, q = corpus
