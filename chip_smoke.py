@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
     python3 chip_smoke.py --paths [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --ring [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -62,14 +63,23 @@ Phases, in order; any failure exits non-zero:
    ways; the per-shard scan at 80 candidates into ``scan_ring_topk(k=10)``
    (B7) against the gather of the same tiles; ``sharded_ivf_pq_lists_search``
    on phase 4's index and ``sharded_knn`` on the 1M rows, ring against
-   gather; B5-B7 timed at the served (128-row) and 1,024-row shapes.
+   gather; B5-B7 timed at the served (128-row) and 1,024-row shapes, B6
+   and B7 beside the gather merge and the host schedule. On one card the
+   rings launch no B5: its folds run inside B6's and B7's launches
+   (``fused_ring_topk.folds``).
 
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
-256, with ties, signed zeros, padding and ``inf``), B6 ``fused_ring_topk``
-(virtual meshes of 2, 3, 4 and 8 shards, 128 and 1,000 queries, one shard
-demoted) and B7 ``fused_scan_ring_topk`` (tiles of k, 3k, 8k and 8k + 3
-columns) against their plain versions and the gather merge: same ids, same
-value bits.
+256, with ties, signed zeros, padding and ``inf``) against its plain
+version, and B6 ``fused_ring_topk`` and B7 ``fused_scan_ring_topk`` (on one
+card: one ``ring_onecard`` launch a ring) over virtual meshes of 2, 3, 4
+and 8 shards, 1, 37, 128 and 1,024 queries, tiles of 6, 10, 23, 80 and 83
+columns, one shard demoted, against the gather merge, the kernel's plain
+mirror and the host schedule (the engine of distinct cards) run on the
+same mesh: same ids, same value bits. Then it splits a ring call of each
+engine and of the gather merge into host and device time
+(``ring_host_device``: device operations, host µs, device µs busy,
+``cuda_ms``) at 128 and 1,024 queries over four shards, and reads the
+kernel's stage clock (``fused_ring_topk_split``).
 
 Each kernel's launch count is zeroed just before its path runs (phases
 3-7) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
@@ -78,7 +88,8 @@ IVF-Flat serving backlogs. ``--paths`` runs none of the phases: it times
 one tree's IVF-Flat search paths per call (:func:`paths_ms`), importing
 ``raft_tpu_torch`` from ``--tree`` (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
-one card, old / new / new / old.
+one card, old / new / new / old. ``--ring`` runs phase 2's ring checks
+and lines alone.
 The last line is ``{"ok": true, "device": {...}}``, after the
 ``{"kernels": [...]}`` line and the card's name and power limit. Other
 numbers print one JSON object per line with the card's name and power
@@ -339,14 +350,14 @@ def pq_bound_ms(a, k: int) -> tuple:
                     + q_rot.shape[0] * k * 8, H100_FADD_RATE)
 
 
-def stage_split(rec, stages, counts=()) -> dict:
+def stage_split(rec, stages, counts=(), slots=None) -> dict:
     """A stage clock record (``csrc/stage_clock.cuh``, int64 ``[CTAs,
-    len(stages) + 2 + len(counts)]``) as each stage's share of the warps'
-    cycles (the rest, loop control and the final write, as ``other``), the
-    min, median and max of the CTAs' own cycles, and each counter's mean
-    over the CTAs."""
+    slots + 2 + len(counts)]``, ``slots`` the stage words, ``len(stages)``
+    by default) as each stage's share of the warps' cycles (the rest, loop
+    control and the final write, as ``other``), the min, median and max of
+    the CTAs' own cycles, and each counter's mean over the CTAs."""
     r = rec.cpu().numpy().astype(np.float64)
-    n = len(stages)
+    n = slots or len(stages)
     share = {name: float(r[:, i].sum() / r[:, n].sum()) for i, name in enumerate(stages)}
     share["other"] = 1.0 - sum(share.values())
     cta = r[:, n + 1]
@@ -577,6 +588,44 @@ def ring_bound_ms(n: int, nq: int, kc: int, k: int) -> tuple:
     return bound_ms(0.0, n * nq * (kc + k) * 8.0)
 
 
+def ring_host_device(card, phase: str, engine: str, fn, nq: int, shards: int, reps: int = 20) -> dict:
+    """One ring engine's call split into host and device time: the device
+    operations a call (kernels and memcpys, from torch.profiler over
+    ``reps`` calls), the host µs a call takes to return (enqueue only, the
+    card idle before each call; median, and mean), the device µs busy a
+    call, and ``cuda_ms`` (events around ``reps`` calls: the time a caller
+    sees)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in dev if "emcpy" in e.key or "emset" in e.key]
+    row = dict(engine=engine, queries=nq, shards=shards, reps=reps,
+               device_ops_per_call=sum(e.count for e in dev) / reps,
+               memcpys_per_call=sum(e.count for e in copies) / reps,
+               kernels_per_call=sum(e.count for e in dev if e not in copies) / reps,
+               host_us_per_call=float(np.median(host)) * 1e6,
+               host_us_mean=float(np.mean(host)) * 1e6,
+               device_us_busy_per_call=sum(e.self_device_time_total for e in dev) / reps,
+               cuda_ms=cuda_ms(fn, reps),
+               kernels={e.key[:60]: e.count / reps for e in dev})
+    emit(card, phase=phase, metric="ring_host_device", **row)
+    return row
+
+
 def atomic_segment_sum(values, labels, k: int, batched: bool = False) -> torch.Tensor:
     """The build's label sums as the port added them before: ``index_add_``
     (the batched form: over labels offset by ``k`` per batch, as
@@ -658,6 +707,65 @@ def paths_ms(card: str, tree: str, seed: int, reps: int = 50) -> None:
          select_k_coarse=cuda_ms(lambda: select_k(coarse, 20, select_min=True), reps))
 
 
+def ring_checks(card: str, rng, max_err: dict) -> None:
+    """B6 (tiles of at most k = 10 columns) and B7 (wider tiles) over
+    virtual meshes of 2, 3, 4 and 8 shards of the card, 1, 37, 128 and 1,024
+    queries, tiles of 6, 10, 23, 80 and 83 columns, one shard demoted,
+    min- and max-select in turns: each bit-equal to the gather merge, to
+    the kernel's plain mirror and to the host schedule (the engine of
+    shards on distinct cards) on the same mesh. Then, over four shards at
+    128 and 1,024 queries, each engine's ``ring_host_device`` line and the
+    kernel's stage split (``fused_ring_topk_split``)."""
+    from raft_tpu_torch.ops import ring_topk as rt
+    from raft_tpu_torch.parallel import make_mesh
+
+    shapes = [(n, nq, kc) for n in (2, 3, 4, 8) for nq in (1, 37, 128, 1024)
+              for kc in (6, 10, 23, 80, 83)]
+    for idx, (n, nq, kc) in enumerate(shapes):
+        select_min = idx % 2 == 0
+        mesh = make_mesh(["cuda:0"] * n)
+        vs, is_ = shard_tiles(rng, n, nq, kc, select_min, demote=(n // 2,), sort=kc <= 10)
+        name = "fused_ring_topk" if kc <= 10 else "fused_scan_ring_topk"
+        got = getattr(rt, name)(mesh, vs, is_, 10, select_min)
+        torch.cuda.synchronize()
+        what = f"{name} n {n} nq {nq} kc {kc} select_min {select_min}"
+        err = max(ring_err(what + " vs gather", got, rt.gather_merge(mesh, vs, is_, 10, select_min)),
+                  ring_err(what + " vs plain mirror", got,
+                           rt.ring_kernel_reference(vs, is_, 10, select_min)),
+                  ring_err(what + " vs host schedule", got,
+                           rt._run_ring(mesh, vs, is_, 10, select_min)[0]))
+        max_err[name] = max(max_err[name], err)
+        sent = (rt.fused_ring_topk.last_bytes if name == "fused_ring_topk" else None) or {}
+        emit(card, phase="kernel_vs_plain", kernel=name, n_shards=n, nq=nq, kc=kc, k=10,
+             select_min=select_min, demoted=[n // 2], max_abs_err=err, grid=rt.fused_ring_topk.last_grid,
+             bytes_per_query=sent.get("per_query"),
+             wire_model_bytes_per_query=sent.get("model_per_query"))
+    mesh = make_mesh(["cuda:0"] * 4)
+    for nq in (128, 1024):
+        vs, is_ = shard_tiles(rng, mesh.size, nq, 10, True)
+        for engine, fn in (("kernel", lambda: rt.fused_ring_topk(mesh, vs, is_, 10)),
+                           ("schedule", lambda: rt._run_ring(mesh, vs, is_, 10, True)),
+                           ("gather", lambda: rt.gather_merge(mesh, vs, is_, 10, True))):
+            ring_host_device(card, "kernel_vs_plain", engine, fn, nq, mesh.size)
+        rec = rt.fused_ring_topk_stages(mesh, vs, is_, 10)
+        emit(card, phase="kernel_vs_plain", metric="fused_ring_topk_split", queries=nq,
+             shards=mesh.size, k=10, grid=rt.fused_ring_topk.last_grid,
+             **stage_split(rec, rt.STAGES, rt.COUNTS, slots=rt.STAGE_SLOTS))
+
+
+def ring_split(card: str, seed: int) -> None:
+    """Phase 2's ring checks alone (:func:`ring_checks`), after building
+    the ring's kernels."""
+    from raft_tpu_torch.ops import ring_topk as rt
+
+    _, build_s, log = rt.build_kernel(True)
+    emit(card, phase="build", kernel="ring_topk", build_s=build_s,
+         ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
+    max_err = {"fused_ring_topk": 0.0, "fused_scan_ring_topk": 0.0}
+    ring_checks(card, np.random.default_rng([seed, 7]), max_err)
+    emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -667,6 +775,8 @@ def main() -> int:
     ap.add_argument("--paths", action="store_true",
                     help="only time one tree's IVF-Flat search paths per call")
     ap.add_argument("--tree", help="with --paths: the tree whose raft_tpu_torch to import")
+    ap.add_argument("--ring", action="store_true",
+                    help="only split the ring engines' calls into host and device time")
     args = ap.parse_args()
     if args.tree and not args.paths:
         ap.error("--tree goes with --paths")
@@ -678,6 +788,9 @@ def main() -> int:
     sys.path.insert(0, tree)
     if args.paths:
         paths_ms(card_line(), tree, args.seed)
+        return 0
+    if args.ring:
+        ring_split(card_line(), args.seed)
         return 0
     from raft_tpu_torch.core.resources import Resources
     from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
@@ -790,39 +903,8 @@ def main() -> int:
                 max_err["hop_merge"] = max(max_err["hop_merge"], err)
                 emit(card, phase="kernel_vs_plain", kernel="hop_merge", rows=rows, w=w,
                      select_min=select_min, max_abs_err=err)
-    # B6: the ring over virtual meshes, one shard demoted
-    for n in (2, 3, 4, 8):
-        ring_mesh = make_mesh(["cuda:0"] * n)
-        for nq_r in (128, 1000):
-            for select_min in (True, False):
-                vs, is_ = shard_tiles(ring_rng, n, nq_r, 10, select_min, demote=(n // 2,))
-                got = rt.fused_ring_topk(ring_mesh, vs, is_, 10, select_min)
-                torch.cuda.synchronize()
-                what = f"fused_ring_topk n {n} nq {nq_r} select_min {select_min}"
-                err = max(ring_err(what, got, rt.ring_topk_reference(vs, is_, 10, select_min, ring_mesh)),
-                          ring_err(what + " vs gather", got,
-                                   rt.gather_merge(ring_mesh, vs, is_, 10, select_min)))
-                max_err["fused_ring_topk"] = max(max_err["fused_ring_topk"], err)
-                emit(card, phase="kernel_vs_plain", kernel="fused_ring_topk", n_shards=n, nq=nq_r,
-                     k=10, select_min=select_min, demoted=[n // 2], max_abs_err=err,
-                     bytes_per_query=rt.fused_ring_topk.last_bytes["per_query"],
-                     wire_model_bytes_per_query=rt.fused_ring_topk.last_bytes["model_per_query"])
-    # B7: the scan ring on wide tiles (and the scan fold alone on one shard)
-    for n, kc in ((4, 10), (4, 30), (4, 80), (4, 83), (1, 80)):
-        ring_mesh = make_mesh(["cuda:0"] * n)
-        for select_min in (True, False):
-            vs, is_ = shard_tiles(ring_rng, n, 1000, kc, select_min, demote=(1,) if n > 1 else (),
-                                  sort=False)
-            got = rt.fused_scan_ring_topk(ring_mesh, vs, is_, 10, select_min)
-            torch.cuda.synchronize()
-            what = f"fused_scan_ring_topk n {n} kc {kc} select_min {select_min}"
-            err = max(ring_err(what, got, rt.ring_topk_reference(vs, is_, 10, select_min, ring_mesh,
-                                                                  scan_fold=True)),
-                      ring_err(what + " vs gather", got,
-                               rt.gather_merge(ring_mesh, vs, is_, 10, select_min)))
-            max_err["fused_scan_ring_topk"] = max(max_err["fused_scan_ring_topk"], err)
-            emit(card, phase="kernel_vs_plain", kernel="fused_scan_ring_topk", n_shards=n, nq=1000,
-                 kc=kc, k=10, select_min=select_min, max_abs_err=err)
+    # B6 and B7: the ring over virtual meshes, one shard demoted
+    ring_checks(card, ring_rng, max_err)
     emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
     # the build's determinism, on the mid-size set
@@ -1149,6 +1231,7 @@ def main() -> int:
     ring_kernels = (rt.hop_merge, rt.fused_ring_topk, rt.fused_scan_ring_topk)
     for f in ring_kernels:
         f.launches = 0
+    rt.fused_ring_topk.folds = 0
     qb = 1024
 
     def batched(fn):
@@ -1191,11 +1274,12 @@ def main() -> int:
                                 merge_mode="ring")
     rt.fused_ring_topk.launches = before + served_b6
     if args.profile:
-        counts = [f.launches for f in ring_kernels]
+        counts = [f.launches for f in ring_kernels] + [rt.fused_ring_topk.folds]
         profile_backlog(card, eng, "sift1m_sharded", Q, starts, sizes, k,
                         "serve_sharded_backlog_trace.json")
         for f, c in zip(ring_kernels, counts):
             f.launches = c
+        rt.fused_ring_topk.folds = counts[-1]
     emit(card, phase="sharded", metric="serve_launches", value=served_b6,
          bytes_per_query=rt.fused_ring_topk.last_bytes["per_query"],
          wire_model_bytes_per_query=rt.fused_ring_topk.last_bytes["model_per_query"])
@@ -1228,15 +1312,15 @@ def main() -> int:
         max_err["fused_scan_ring_topk"] = max(
             max_err["fused_scan_ring_topk"],
             ring_err(what + " vs gather", got, rt.gather_merge(mesh, vs80, is80, k, True)),
-            ring_err(what, got, rt.ring_topk_reference(vs80, is80, k, True, mesh, scan_fold=True)))
+            ring_err(what, got, rt.ring_kernel_reference(vs80, is80, k)))
         # the comparisons and timings below stay out of the path's launch counts
-        counts = [f.launches for f in ring_kernels]
+        counts = [f.launches for f in ring_kernels] + [rt.fused_ring_topk.folds]
         got = rt.ring_topk(mesh, vs10, is10, k)
         torch.cuda.synchronize()
         max_err["fused_ring_topk"] = max(
             max_err["fused_ring_topk"],
             ring_err(f"ring at {rows_q} queries vs gather", got, rt.gather_merge(mesh, vs10, is10, k, True)),
-            ring_err(f"ring at {rows_q} queries", got, rt.ring_topk_reference(vs10, is10, k, True, mesh)))
+            ring_err(f"ring at {rows_q} queries", got, rt.ring_kernel_reference(vs10, is10, k)))
         # B5 at one hop's shape: B = rows / shards rows of k candidates
         B = -(-rows_q // mesh.size)
         fa, fb = fold_tiles(ring_rng, B, k, True, 0), fold_tiles(ring_rng, B, k, True, 1)
@@ -1248,18 +1332,20 @@ def main() -> int:
                               bound=bound_ms(0.0, 3 * B * k * 16.0), rows=B, w=k),
             "fused_ring_topk": dict(
                 ms=cuda_ms(lambda: rt.fused_ring_topk(mesh, vs10, is10, k), reps=20),
-                plain_ms=cuda_ms(lambda: rt.ring_topk_reference(vs10, is10, k, True, mesh), reps=3),
+                plain_ms=cuda_ms(lambda: rt.ring_kernel_reference(vs10, is10, k), reps=3),
                 gather_ms=cuda_ms(lambda: rt.gather_merge(mesh, vs10, is10, k, True), reps=20),
+                schedule_ms=cuda_ms(lambda: rt._run_ring(mesh, vs10, is10, k, True), reps=20),
                 bound=ring_bound_ms(mesh.size, rows_q, k, k), nq=rows_q, kc=k),
             "fused_scan_ring_topk": dict(
                 ms=cuda_ms(lambda: rt.fused_scan_ring_topk(mesh, vs80, is80, k), reps=20),
-                plain_ms=cuda_ms(lambda: rt.ring_topk_reference(vs80, is80, k, True, mesh,
-                                                                scan_fold=True), reps=3),
+                plain_ms=cuda_ms(lambda: rt.ring_kernel_reference(vs80, is80, k), reps=3),
                 gather_ms=cuda_ms(lambda: rt.gather_merge(mesh, vs80, is80, k, True), reps=20),
+                schedule_ms=cuda_ms(lambda: rt._run_ring(mesh, vs80, is80, k, True), reps=20),
                 bound=ring_bound_ms(mesh.size, rows_q, kk, k), nq=rows_q, kc=kk),
         }
         for f, c in zip(ring_kernels, counts):
             f.launches = c
+        rt.fused_ring_topk.folds = counts[-1]
         for name, row in t.items():
             bms, bby = row.pop("bound")
             row.update(bound_ms=bms, bound_by=bby)
@@ -1299,10 +1385,15 @@ def main() -> int:
         raise AssertionError(f"sharded kNN recall against brute force {knn_recall} < 0.999")
 
     phase7 = {f.__name__: f.launches for f in ring_kernels}
-    emit(card, phase="sharded", metric="launches", value=phase7)
-    for name, c in phase7.items():
-        if c <= 0:
+    folds = rt.fused_ring_topk.folds
+    emit(card, phase="sharded", metric="launches", value=phase7, folds_inside_rings=folds)
+    # on one card each ring is one launch of B6/B7, B5's folds run inside it
+    for name in ("fused_ring_topk", "fused_scan_ring_topk"):
+        if phase7[name] <= 0:
             raise AssertionError(f"phase 7 never launched {name}")
+    if folds <= 0 or phase7["hop_merge"] != 0:
+        raise AssertionError(f"phase 7's rings folded {folds} blocks inside the kernel and "
+                             f"launched B5 {phase7['hop_merge']} times (expected > 0 and 0)")
     emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
     rows = []
@@ -1323,6 +1414,8 @@ def main() -> int:
                      "replaces": line, "launches": launches, "max_abs_err": max_err[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None})
+        if name == "hop_merge":  # on one card B5's folds run inside B6's and B7's launches
+            rows[-1]["folds_inside_rings"] = folds
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

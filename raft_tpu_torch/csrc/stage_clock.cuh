@@ -1,4 +1,4 @@
-// In-kernel stage clock for the fused scan kernels: where a CTA's cycles go.
+// In-kernel stage clock for the fused kernels: where a CTA's cycles go.
 //
 // A kernel templated on PROF keeps one StageClock per thread. lap(s) adds
 // the clock64() cycles since the previous lap to stage s (warp_lap(s) once
@@ -32,6 +32,10 @@ constexpr int RECORD = N_STAGES + 2 + N_COUNTS;  // int64 words per CTA
 enum Stage { kLut = 0, kQc = 1, kCodes = 2, kScore = 3, kTopk = 4, kBarrier = 5 };
 // B2's counters: candidates that passed the filter, batches merged into a list
 enum Count { kCandidates = 0, kMerges = 1 };
+// The one-launch ring's stages (B6/B7 on one card) and counters: polls of a
+// flag that was not yet set, and flag waits
+enum RingStage { kStage = 0, kWait = 1, kFold = 2, kSend = 3 };
+enum RingCount { kSpins = 0, kWaits = 1 };
 
 __device__ __forceinline__ long long* cta_record(long long* rec) {
   return rec + (long long)(blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) * RECORD;
