@@ -1,8 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --paths [--tree DIR] [--seed 0]
-    python3 chip_smoke.py --ring [--seed 0]
+    python3 chip_smoke.py --phases paths,ring,b3,rabitq [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -14,7 +13,15 @@ Phases, in order; any failure exits non-zero:
    ``fused_list_topk`` for the four metrics and int8 and bf16 lists at
    k = 10 and 100; B2 ``fused_pq_topk`` for nib8, u8 (ksub 16 and 256),
    p4 and b5 codes under L2 and IP at k = 10 and 80; B3
-   ``fused_rabitq_topk`` under L2 and IP at k = 10 and 80; each with one
+   ``fused_rabitq_topk`` on RaBitQ indexes at d = 128, 136 (an odd byte
+   count a row), 1,544 and 3,072 (the depth-sliced instantiation, with and
+   without staged code rows), with tiles of 128, 32, 16 and 8 queries,
+   with and without a filter bitset, under L2 and IP at k = 10, 80 and
+   256, equal to the plain version bit for bit (``torch.equal`` of values
+   and slots), per shape one launch of its checking instantiation
+   (``fused_rabitq_topk_filter``: the filter's lower bound never above an
+   exact score), and timed at d = 1,544 and 3,072
+   (``fused_rabitq_topk_sliced_ms``); each with one
    CTA per tile share and with the default split; B4 ``cagra_fused_search``
    on CAGRA graphs of degree 16 and 32 built through the ``ivf_pq`` route,
    under L2 and IP, with f32 and bf16 tables, at (itopk, width) of (64, 1),
@@ -43,8 +50,13 @@ Phases, in order; any failure exits non-zero:
    of the warps' cycles and the min / median / max cycles of a CTA, from
    the kernel's stage clock);
 5. RaBitQ: ``ivf_pq.build(n_lists=1024, pq_bits=1)``, ``search`` in auto
-   mode with ``dataset=`` on the 10,000 queries; B3 at that path's shape
-   against its plain version and its bound;
+   mode with ``dataset=`` on the 10,000 queries (recall with and without
+   refine, digests of the ids); B3 at that path's shape (1,024 queries,
+   k = 80) against its plain version and its bound (the largest of the
+   bytes, one bf16 pass of the bit product and the estimator's FP32
+   operations; ``fadd_bound_ms`` the masked-add form's), its CTA plan and
+   grid, where its cycles go (``fused_rabitq_topk_split``) and its filter
+   check (``fused_rabitq_topk_filter``);
 6. CAGRA at full width: ``cagra.build(intermediate_graph_degree=32,
    graph_degree=16, build_algo="ivf_pq")`` on phase 4's IVF-PQ index (its
    self-search runs B2), search with ``CagraSearchParams(itopk_size=128,
@@ -84,12 +96,14 @@ kernel's stage clock (``fused_ring_topk_split``).
 Each kernel's launch count is zeroed just before its path runs (phases
 3-7) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
 adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
-IVF-Flat serving backlogs. ``--paths`` runs none of the phases: it times
-one tree's IVF-Flat search paths per call (:func:`paths_ms`), importing
-``raft_tpu_torch`` from ``--tree`` (default: this file's directory), so
+IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
+(:func:`run_phases`): ``paths`` times the IVF-Flat search paths per call
+(:func:`paths_ms`), ``ring`` phase 2's ring checks and lines, ``b3``
+phase 2's B3 checks, ``rabitq`` phase 5; with ``--tree`` they import
+``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
-one card, old / new / new / old. ``--ring`` runs phase 2's ring checks
-and lines alone.
+one card, old / new / new / old, the B3 lines an older kernel cannot give
+skipped.
 The last line is ``{"ok": true, "device": {...}}``, after the
 ``{"kernels": [...]}`` line and the card's name and power limit. Other
 numbers print one JSON object per line with the card's name and power
@@ -100,6 +114,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -117,6 +132,9 @@ H100_HBM_BYTES_S = 3.35e12
 # instruction a lane, so a sum of looked-up LUT entries (B2) or of masked
 # values (B3) runs at half that rate.
 H100_FADD_RATE = 33.5e12
+# Dense bf16 tensor-core rate of an H100 SXM with an f32 sum (NVIDIA data
+# sheet, without sparsity): B3's bit product runs at it.
+H100_BF16_FLOPS = 989e12
 # Query tile of the served IVF-Flat index. A 128-row serving batch holds
 # unrelated queries, so with the default 128-row tile its probe union
 # overflows the tile's table of fused_probe_factor * n_probes / group units
@@ -367,20 +385,222 @@ def stage_split(rec, stages, counts=(), slots=None) -> dict:
                 per_cta_mean={name: float(r[:, n + 2 + i].mean()) for i, name in enumerate(counts)})
 
 
-def rabitq_bound_ms(a, k: int) -> tuple:
-    """Least time for one fused_rabitq_topk call: qt x filled rows x D FP32
-    adds at the FADD rate vs the filled code rows of the distinct units
-    plus 12 B a row (ln, g, id), the rotated queries, the tables and the
-    outputs."""
+def rabitq_bound_ms(a, k: int) -> dict:
+    """Least time for one fused_rabitq_topk call on these inputs, the
+    largest of three: the filled code rows of the distinct units plus 12 B
+    a row (ln, g, id), the rotated queries, the tables and the outputs
+    moved once; one dense bf16 pass of the ``qt x filled rows x D`` bit
+    product on the tensor cores; the estimator's 4 FP32 operations per
+    (query, filled row) at the FADD rate. ``bound_by`` is ``bytes`` or
+    ``operations``, ``bound_term`` which of the three binds, and
+    ``fadd_bound_ms`` the masked-add form's figure (one FP32 add per
+    (query, row, dimension))."""
     codes, ln, _, q_rot, _, tp, pv = a["args"]
     n_qt = tp.shape[0]
     qt = q_rot.shape[0] // n_qt
     bpr = codes.shape[2]
     filled = torch.isfinite(ln.reshape(codes.shape[0], -1)).sum(dim=1).to(torch.float64)
     rows, distinct = _filled_work(tp, pv, filled)
-    return bound_ms(float(qt) * rows * 8 * bpr,
-                    distinct * (bpr + 12) + q_rot.numel() * 4 + tp.numel() * 8
-                    + q_rot.shape[0] * k * 8, H100_FADD_RATE)
+    terms = {
+        "bytes": (distinct * (bpr + 12) + q_rot.numel() * 4 + tp.numel() * 8
+                  + q_rot.shape[0] * k * 8) / H100_HBM_BYTES_S * 1e3,
+        "bf16_product": 2.0 * qt * rows * 8 * bpr / H100_BF16_FLOPS * 1e3,
+        "estimator": 4.0 * qt * rows / H100_FADD_RATE * 1e3,
+    }
+    term = max(terms, key=terms.get)
+    return dict(bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, bound_terms_ms=terms,
+                fadd_bound_ms=float(qt) * rows * 8 * bpr / H100_FADD_RATE * 1e3)
+
+
+def rabitq_checks(card, seed: int, index, Q_mid, max_err, this_tree: bool = True) -> None:
+    """Phase 2's B3 checks: on ``index`` (d = 128), on a second RaBitQ
+    index at d = 136 (17 code bytes a row, the last k-step of the bit
+    product half padding), on a third at d = 1,544 (past the layout that
+    holds the queries and a chunk whole: the depth-sliced instantiation,
+    layout mode 1, its last slice half padding) and on a fourth of 16,384
+    rows at d = 3,072 (mode 2 at k = 80: code rows read from global memory;
+    mode 1 at k = 10): at d = 128 and 136 tiles of 128, 32, 16 and 8
+    queries (64, 32, 16 and 8 queries a CTA), with and without a filter
+    bitset (70 % of the ids kept), L2 and IP, k = 10 and 80, and k = 256 at
+    d = 136 with tiles of 128 and 8; at d = 1,544 the same tiles at k = 10
+    and 80 (L2 unfiltered and IP filtered) and one at k = 256; at d = 3,072
+    tiles of 128 at k = 80 (L2) and 10 (IP, filtered). Each with one CTA
+    per tile share and with the default split: every result equal to the
+    plain version's bit for bit (``rabitq_equal``). Then, per shape, one
+    launch that re-scores every candidate exactly
+    (``fused_rabitq_topk_filter`` line: the lower bound's violations,
+    asserted 0, survivors and the share re-scored), and B3 at d = 1,544 and
+    3,072, 128-query tiles and k = 80 timed beside its plain version and
+    its bound (``fused_rabitq_topk_sliced_ms``). The other indexes and the
+    filters draw from their own seeds, so the later phases see the data
+    and indexes they saw before. ``this_tree``: False for an older tree's
+    package, whose kernel has no checking launch and no CTA plan."""
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import ivf_pq
+
+    rng = np.random.default_rng([seed, 8])
+    l2, ip = "L2Expanded", "InnerProduct"
+    shapes = [(dim, qt, filtered, metric, k) for dim in (128, 136) for qt in (128, 32, 16, 8)
+              for filtered in (False, True) for metric in (l2, ip) for k in (10, 80)]
+    shapes += [(136, qt, False, l2, 256) for qt in (128, 8)]
+    shapes += [(1544, qt, filtered, metric, k) for qt in (128, 32, 16, 8)
+               for filtered, metric in ((False, l2), (True, ip)) for k in (10, 80)]
+    shapes += [(1544, 128, False, ip, 256), (3072, 128, False, l2, 80), (3072, 128, True, ip, 10)]
+    indexes = {128: (index, Q_mid)}
+    for dim, rows in ((136, 65536), (1544, 65536), (3072, 16384)):
+        gen = Clustered(np.random.default_rng([seed, 8, dim]), dim, 512)
+        indexes[dim] = (ivf_pq.build(gen.sample(rows), ivf_pq.IvfPqIndexParams(n_lists=64, pq_bits=1),
+                                     res=Resources(device="cuda", seed=seed)),
+                        torch.from_numpy(gen.sample(512)).cuda())
+    bits = {}
+    for dim, (idx, _) in indexes.items():
+        keep = np.packbits(rng.random(-(-idx.size // 32) * 32) < 0.7, bitorder="little")
+        bits[dim] = torch.from_numpy(keep.view(np.int32).copy()).cuda()
+    for dim, qt, filtered, metric, k in shapes:
+        idx, Qs = indexes[dim]
+        params = ivf_pq.IvfPqSearchParams(n_probes=8, fused_qt=qt)
+        a = rabitq_args(idx, Qs, params, ivf_pq.DistanceType[metric],
+                        bits[dim] if filtered else None)
+        tags = dict(d=dim, fused_qt=qt, filtered=filtered, distance=metric, k=k)
+        rv, rs = run_rabitq(a, k, reference=True)
+        for n_split in (1, None):
+            kv, ks = run_rabitq(a, k, n_split=n_split)
+            torch.cuda.synchronize()
+            err = rabitq_equal(f"{tags} n_split {n_split}", kv, ks, rv, rs)
+            max_err["fused_rabitq_topk"] = max(max_err["fused_rabitq_topk"], err)
+            emit(card, phase="kernel_vs_plain", kernel="fused_rabitq_topk",
+                 n_split=n_split or "auto", max_abs_err=err, **tags,
+                 **(rabitq_plan(a, k) if this_tree else {}))
+        if this_tree:
+            rabitq_filter_line(card, "kernel_vs_plain", a, rv, rs, **tags)
+        if dim > 1000 and (qt, filtered, k) == (128, False, 80):
+            emit(card, phase="kernel_vs_plain", metric="fused_rabitq_topk_sliced_ms", **tags,
+                 ms=cuda_ms(lambda: run_rabitq(a, k), reps=5),
+                 plain_ms=cuda_ms(lambda: run_rabitq(a, k, reference=True), reps=1),
+                 **rabitq_bound_ms(a, k), **(rabitq_plan(a, k) if this_tree else {}))
+            if this_tree:
+                rabitq_split_line(card, "kernel_vs_plain", a, **tags)
+    del indexes
+
+
+def rabitq_split_line(card, phase: str, a, **tags) -> None:
+    """One launch of B3 with its stage clock on: the
+    ``fused_rabitq_topk_split`` line (each stage's share of the warps'
+    cycles, the CTAs' cycles, survivors and merges a CTA)."""
+    from raft_tpu_torch.ops import rabitq_scan
+
+    rec = rabitq_scan.fused_rabitq_topk_stages(*a["args"], k=tags["k"], metric=a["metric"],
+                                               qt=a["qt"])
+    emit(card, phase=phase, metric="fused_rabitq_topk_split",
+         **stage_split(rec, rabitq_scan.STAGES, rabitq_scan.COUNTS), **tags)
+
+
+def rabitq_filter_line(card, phase: str, a, rv, rs, **tags) -> None:
+    """One launch of B3's checking instantiation, which re-scores every
+    candidate exactly: its result equal to the plain version's, and the
+    ``fused_rabitq_topk_filter`` line (violations of the lower bound,
+    asserted 0; survivors of the filter per query and tile; the share of
+    the candidates re-scored)."""
+    from raft_tpu_torch.ops import rabitq_scan
+
+    kv, ks, counts = rabitq_scan.fused_rabitq_topk_check(*a["args"], k=tags["k"],
+                                                         metric=a["metric"], qt=a["qt"])
+    rabitq_equal(f"checking launch {tags}", kv, ks, rv, rs)
+    n_qt = a["args"][5].shape[0]
+    emit(card, phase=phase, metric="fused_rabitq_topk_filter", violations=counts["violations"],
+         survivors_per_query_tile=counts["survivors"] / (n_qt * a["qt"]),
+         rescored_share=counts["survivors"] / max(1, counts["candidates"]),
+         candidates=counts["candidates"], **tags)
+    if counts["violations"] != 0:
+        raise AssertionError(f"B3's filter bound failed {counts['violations']} times at {tags}")
+
+
+def ids_digest(ids) -> str:
+    """A short digest of an id tensor, to compare two trees' results."""
+    return hashlib.sha1(ids.cpu().numpy().astype(np.int32).tobytes()).hexdigest()[:16]
+
+
+def rabitq_phase(card, res, X, X_card, Qt, gt_i, k: int, kk: int, max_err,
+                 this_tree: bool = True) -> tuple:
+    """Phase 5: a 1M RaBitQ index (``pq_bits=1``), ``search(mode="auto")``
+    of every query with ``dataset=`` (8x refine), recall with and without
+    refine (and the ids' digests, to compare trees), then B3 at that
+    path's shape (one 1,024-query batch, ``kk`` = 80) against its plain
+    version and its bound, its CTA plan, stage split and filter check
+    (not for an older tree's package: ``this_tree`` False).
+    ``fused_rabitq_topk.launches`` is zeroed just before the search and
+    read just after. Returns ``(launches, B3's times)``."""
+    from raft_tpu_torch.neighbors import ivf_pq
+    from raft_tpu_torch.ops import rabitq_scan
+    from raft_tpu_torch.stats.recall import neighborhood_recall
+
+    nq = Qt.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024, pq_bits=1), res=res)
+    torch.cuda.synchronize()
+    emit(card, phase="rabitq", metric="build_s", value=time.perf_counter() - t0,
+         max_list=rq_index.max_list, code_bytes_per_row=int(rq_index.codes.shape[2]))
+    rq_params = ivf_pq.IvfPqSearchParams()
+    rabitq_scan.fused_rabitq_topk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, r_ids = ivf_pq.search(rq_index, Qt, k, rq_params, mode="auto", dataset=X_card)
+    torch.cuda.synchronize()
+    rq_secs = time.perf_counter() - t0
+    rq_launches = rabitq_scan.fused_rabitq_topk.launches
+    rq_recall = neighborhood_recall(r_ids, gt_i)
+    _, r_nr = ivf_pq.search(rq_index, Qt, k, dataclasses.replace(rq_params, refine_ratio=1),
+                            mode="fused")
+    emit(card, phase="rabitq", metric="search_recall@10", value=rq_recall,
+         recall_no_refine=neighborhood_recall(r_nr, gt_i), qps=nq / rq_secs,
+         launches=rq_launches, n_probes=rq_params.n_probes, refine_ratio=rq_params.refine_ratio,
+         ids_digest=ids_digest(r_ids), ids_no_refine_digest=ids_digest(r_nr))
+    if rq_launches <= 0:
+        raise AssertionError("RaBitQ search(mode='auto') never launched fused_rabitq_topk")
+    if rq_recall < 0.90:
+        raise AssertionError(f"RaBitQ recall@10 with refine {rq_recall} < 0.90")
+    # B3 at that path's shapes: one 1,024-query batch, k * refine_ratio = 80
+    a = rabitq_args(rq_index, Qt[:1024], rq_params)
+    kv, ks = run_rabitq(a, kk)
+    rv, rs = run_rabitq(a, kk, reference=True)
+    max_err["fused_rabitq_topk"] = max(max_err["fused_rabitq_topk"],
+                                       rabitq_equal("phase 5 batch", kv, ks, rv, rs))
+    b3 = time_kernel(run_rabitq, a, kk, reps=10)
+    bound = rabitq_bound_ms(a, kk)
+    b3.update(bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+    emit(card, phase="rabitq", metric="fused_rabitq_topk_ms_1024_query_batch", value=b3["ms"],
+         plain_ms=b3["plain_ms"], n_split_ms=b3["n_split_ms"], k=kk,
+         n_qt=int(a["args"][5].shape[0]), valid_units=int((a["args"][6] > 0).sum()),
+         unit_rows=int(a["args"][0].shape[1]), **bound,
+         **(rabitq_plan(a, kk) if this_tree else {}))
+    if this_tree:
+        # where B3's cycles go at that shape: one launch with the stage clock on
+        rabitq_split_line(card, "rabitq", a, k=kk, queries=1024)
+        rabitq_filter_line(card, "rabitq", a, rv, rs, k=kk, queries=1024)
+    return rq_launches, b3
+
+
+def rabitq_plan(a, k: int) -> dict:
+    """B3's CTA plan at these inputs and the grid of its last launch."""
+    from raft_tpu_torch.ops import rabitq_scan
+
+    _, _, _, q_rot, crot, tp, _ = a["args"]
+    plan = rabitq_scan.cta_plan(q_rot.shape[1], k, crot.shape[1], a["qt"])
+    return dict(queries_per_cta=plan.queries, rows_per_chunk=plan.rows, layout_mode=plan.mode,
+                smem_bytes=plan.smem_bytes, ctas_per_sm=plan.ctas_per_sm,
+                grid=list(rabitq_scan.fused_rabitq_topk.last_grid))
+
+
+def rabitq_equal(what: str, kv, ks, rv, rs) -> float:
+    """B3 against its plain version: ``compare_topk``, then the same
+    values and slots bit for bit (``torch.equal``)."""
+    err = compare_topk(kv, ks, rv, rs)
+    if not (torch.equal(kv.view(torch.int32), rv.view(torch.int32)) and torch.equal(ks, rs)):
+        raise AssertionError(f"B3 {what}: values or slots differ from the plain version's "
+                             f"({int((ks != rs).sum())} slots, max abs err {err})")
+    return err
 
 
 def flat_args(index, queries, params):
@@ -404,14 +624,14 @@ def run_flat(fi, k, metric, reference=False, **kw):
               fi.tile_probes, fi.probe_valid, k=k, metric=metric, qt=qt, **kw)
 
 
-def code_inputs(index, queries, params, metric, codes):
+def code_inputs(index, queries, params, metric, codes, filter_bits=None):
     from raft_tpu_torch.neighbors import ivf_pq
     from raft_tpu_torch.ops import pq_scan
 
     rank, group = ivf_pq.fused_rank_group(index, params)
     return pq_scan.code_scan_inputs(
         index.centers, index.centers_rot, rank, index.rotation, codes, index.list_indices,
-        queries, None, n_probes=min(params.n_probes, index.n_lists), metric=metric,
+        queries, filter_bits, n_probes=min(params.n_probes, index.n_lists), metric=metric,
         qt=params.fused_qt, probe_factor=params.fused_probe_factor, group=group,
     )
 
@@ -440,11 +660,13 @@ def run_pq(a, k, reference=False, **kw):
               ksub=a["ksub"], **kw)
 
 
-def rabitq_args(index, queries, params, metric=None):
+def rabitq_args(index, queries, params, metric=None, filter_bits=None):
+    """B3's inputs on the search path's shapes (``filter_bits``: an int32
+    bitset over the index's ids, folded into ``ln`` as the search does)."""
     from raft_tpu_torch.ops import rabitq_scan
 
     metric = metric or index.metric
-    ci = code_inputs(index, queries, params, metric, index.codes)
+    ci = code_inputs(index, queries, params, metric, index.codes, filter_bits)
     ln, corr = rabitq_scan.rabitq_channels(ci.valid, index.rot_sqnorms, index.corrections)
     return dict(args=(ci.codes, ln, corr, ci.q_rot, ci.centers_rot, ci.tile_probes, ci.probe_valid),
                 metric=metric, qt=params.fused_qt)
@@ -753,17 +975,55 @@ def ring_checks(card: str, rng, max_err: dict) -> None:
              **stage_split(rec, rt.STAGES, rt.COUNTS, slots=rt.STAGE_SLOTS))
 
 
-def ring_split(card: str, seed: int) -> None:
-    """Phase 2's ring checks alone (:func:`ring_checks`), after building
-    the ring's kernels."""
+#: the parts ``--phases`` runs alone
+PHASE_PARTS = ("paths", "ring", "b3", "rabitq")
+
+
+def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
+    """Parts of the run alone (``--phases``), on the data the whole run
+    makes from ``seed``, in this order: ``paths`` (:func:`paths_ms`),
+    ``ring`` (phase 2's ring checks and lines, :func:`ring_checks`), ``b3``
+    (phase 2's B3 checks, :func:`rabitq_checks`) and ``rabitq`` (phase 5,
+    :func:`rabitq_phase`, on the 1M set and its exact neighbours). Each
+    builds the kernels it launches first. ``tree`` is the tree whose
+    package runs; ``this_tree`` is False when it is not this file's, and
+    then the B3 lines an older kernel cannot give are skipped."""
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import brute_force, ivf_pq
+    from raft_tpu_torch.ops import rabitq_scan
     from raft_tpu_torch.ops import ring_topk as rt
 
-    _, build_s, log = rt.build_kernel(True)
-    emit(card, phase="build", kernel="ring_topk", build_s=build_s,
-         ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
-    max_err = {"fused_ring_topk": 0.0, "fused_scan_ring_topk": 0.0}
-    ring_checks(card, np.random.default_rng([seed, 7]), max_err)
-    emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
+    if "paths" in parts:
+        paths_ms(card, tree, seed)
+    max_err = {}
+    if "ring" in parts:
+        _, build_s, log = rt.build_kernel(True)
+        emit(card, phase="build", kernel="ring_topk", build_s=build_s,
+             ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
+        max_err.update(fused_ring_topk=0.0, fused_scan_ring_topk=0.0)
+        ring_checks(card, np.random.default_rng([seed, 7]), max_err)
+    if "b3" in parts or "rabitq" in parts:
+        _, build_s, log = rabitq_scan.build_kernel(True)
+        emit(card, phase="build", kernel="fused_rabitq_topk", build_s=build_s,
+             ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
+        max_err["fused_rabitq_topk"] = 0.0
+        res = Resources(device="cuda", seed=seed)
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        X_mid = gen.sample(65536)
+        Q_mid = torch.from_numpy(gen.sample(512)).cuda()
+        if "b3" in parts:
+            index = ivf_pq.build(X_mid, ivf_pq.IvfPqIndexParams(n_lists=64, pq_bits=1), res=res)
+            rabitq_checks(card, seed, index, Q_mid, max_err, this_tree)
+            del index
+        if "rabitq" in parts:
+            gen = Clustered(rng, 128, 4096)
+            X, Q = gen.sample(1_000_000), gen.sample(10_000)
+            _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
+            rabitq_phase(card, res, X, torch.from_numpy(X).cuda(), torch.from_numpy(Q).cuda(),
+                         gt_i, 10, 80, max_err, this_tree)
+    if max_err:
+        emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
 
 def main() -> int:
@@ -772,25 +1032,24 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true", help="phases 1-2 only")
     ap.add_argument("--profile", action="store_true",
                     help="also trace the serving backlogs with torch.profiler")
-    ap.add_argument("--paths", action="store_true",
-                    help="only time one tree's IVF-Flat search paths per call")
-    ap.add_argument("--tree", help="with --paths: the tree whose raft_tpu_torch to import")
-    ap.add_argument("--ring", action="store_true",
-                    help="only split the ring engines' calls into host and device time")
+    ap.add_argument("--phases",
+                    help="only these parts, comma-separated: " + ", ".join(PHASE_PARTS))
+    ap.add_argument("--tree", help="with --phases: the tree whose raft_tpu_torch to import")
     args = ap.parse_args()
-    if args.tree and not args.paths:
-        ap.error("--tree goes with --paths")
+    parts = args.phases.split(",") if args.phases else []
+    if any(p not in PHASE_PARTS for p in parts):
+        ap.error(f"--phases takes {', '.join(PHASE_PARTS)}")
+    if args.tree and not parts:
+        ap.error("--tree goes with --phases")
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    tree = os.path.abspath(args.tree or os.path.dirname(os.path.abspath(__file__)))
+    here = os.path.dirname(os.path.abspath(__file__))
+    tree = os.path.abspath(args.tree or here)
     sys.path.insert(0, tree)
-    if args.paths:
-        paths_ms(card_line(), tree, args.seed)
-        return 0
-    if args.ring:
-        ring_split(card_line(), args.seed)
+    if parts:
+        run_phases(card_line(), parts, args.seed, tree, this_tree=tree == here)
         return 0
     from raft_tpu_torch.core.resources import Resources
     from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
@@ -870,10 +1129,7 @@ def main() -> int:
                 check("fused_pq_topk", run_pq, a, k, metric, codes=label, code_mode=a["code_mode"],
                       ksub=a["ksub"])
     index = ivf_pq.build(X_mid, ivf_pq.IvfPqIndexParams(n_lists=64, pq_bits=1), res=res)
-    for metric in ("L2Expanded", "InnerProduct"):
-        a = rabitq_args(index, Q_mid, mid_pq, ivf_pq.DistanceType[metric])
-        for k in (10, 80):
-            check("fused_rabitq_topk", run_rabitq, a, k, metric)
+    rabitq_checks(card, args.seed, index, Q_mid, max_err)
     for deg in (16, 32):
         cg = cagra.build(X_mid, cagra.CagraIndexParams(intermediate_graph_degree=2 * deg,
                                                        graph_degree=deg, build_algo="ivf_pq"), res=res)
@@ -1099,43 +1355,7 @@ def main() -> int:
         profile_backlog(card, eng, "sift1m_pq", Q, starts, sizes, k, "serve_pq_backlog_trace.json")
 
     # ---- phase 5: RaBitQ ---------------------------------------------------
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024, pq_bits=1), res=res)
-    torch.cuda.synchronize()
-    emit(card, phase="rabitq", metric="build_s", value=time.perf_counter() - t0,
-         max_list=rq_index.max_list, code_bytes_per_row=int(rq_index.codes.shape[2]))
-    rq_params = ivf_pq.IvfPqSearchParams()
-    rabitq_scan.fused_rabitq_topk.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, r_ids = ivf_pq.search(rq_index, Qt, k, rq_params, mode="auto", dataset=X_card)
-    torch.cuda.synchronize()
-    rq_secs = time.perf_counter() - t0
-    rq_launches = rabitq_scan.fused_rabitq_topk.launches
-    rq_recall = neighborhood_recall(r_ids, gt_i)
-    _, r_nr = ivf_pq.search(rq_index, Qt, k, dataclasses.replace(rq_params, refine_ratio=1),
-                            mode="fused")
-    emit(card, phase="rabitq", metric="search_recall@10", value=rq_recall,
-         recall_no_refine=neighborhood_recall(r_nr, gt_i), qps=nq / rq_secs,
-         launches=rq_launches, n_probes=rq_params.n_probes, refine_ratio=rq_params.refine_ratio)
-    if rq_launches <= 0:
-        raise AssertionError("RaBitQ search(mode='auto') never launched fused_rabitq_topk")
-    if rq_recall < 0.90:
-        raise AssertionError(f"RaBitQ recall@10 with refine {rq_recall} < 0.90")
-    # B3 at that path's shapes: one 1,024-query batch, k * refine_ratio = 80
-    a = rabitq_args(rq_index, Qt[:1024], rq_params)
-    kv, ks = run_rabitq(a, kk)
-    rv, rs = run_rabitq(a, kk, reference=True)
-    max_err["fused_rabitq_topk"] = max(max_err["fused_rabitq_topk"], compare_topk(kv, ks, rv, rs))
-    b3 = time_kernel(run_rabitq, a, kk, reps=10)
-    b3["bound_ms"], b3["bound_by"] = rabitq_bound_ms(a, kk)
-    emit(card, phase="rabitq", metric="fused_rabitq_topk_ms_1024_query_batch", value=b3["ms"],
-         bound_ms=b3["bound_ms"], bound_by=b3["bound_by"], plain_ms=b3["plain_ms"],
-         n_split_ms=b3["n_split_ms"], k=kk, n_qt=int(a["args"][5].shape[0]),
-         valid_units=int((a["args"][6] > 0).sum()), unit_rows=int(a["args"][0].shape[1]))
-
-    del rq_index
+    rq_launches, b3 = rabitq_phase(card, res, X, X_card, Qt, gt_i, k, kk, max_err)
 
     # ---- phase 6: CAGRA at full width --------------------------------------
     cagra_search.cagra_fused_search.launches = 0

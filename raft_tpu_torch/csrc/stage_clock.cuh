@@ -36,6 +36,13 @@ enum Count { kCandidates = 0, kMerges = 1 };
 // flag that was not yet set, and flag waits
 enum RingStage { kStage = 0, kWait = 1, kFold = 2, kSend = 3 };
 enum RingCount { kSpins = 0, kWaits = 1 };
+// B3's stages (codes: staging, unpack and q.c, and, as measured, most of
+// the wait at a chunk's first barrier; mma: the bit product; filter: lower
+// bounds and buffering; rescore: exact
+// scores of the candidates; merge: folding them into the lists) and
+// counters: candidates that passed the filter, 32-wide batches merged
+enum RqStage { kRqCodes = 0, kRqMma = 1, kRqFilter = 2, kRqRescore = 3, kRqMerge = 4, kRqBarrier = 5 };
+enum RqCount { kRqSurvivors = 0, kRqMerges = 1 };
 
 __device__ __forceinline__ long long* cta_record(long long* rec) {
   return rec + (long long)(blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) * RECORD;

@@ -321,13 +321,6 @@ def fused_pq_topk_reference(
                           k=k, qt=qt)
 
 
-def default_split(ctas: int, n_steps: int, device) -> int:
-    """CTAs that share one (tile, query group)'s units (B3): enough to give
-    every SM two CTAs, at most ``MAX_SPLIT`` and the probe steps."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return min(MAX_SPLIT, n_steps, cdiv(2 * sms, ctas))
-
-
 def one_wave_split(ctas: int, device) -> int:
     """CTAs that share one (tile, query group)'s work list (B2): as many as
     fill the SMs in one wave at ``_CTAS_PER_SM`` an SM, 1 to
