@@ -135,6 +135,9 @@ H100_FADD_RATE = 33.5e12
 # Dense bf16 tensor-core rate of an H100 SXM with an f32 sum (NVIDIA data
 # sheet, without sparsity): B3's bit product runs at it.
 H100_BF16_FLOPS = 989e12
+# Dense TF32 tensor-core rate of an H100 SXM with an f32 sum (NVIDIA data
+# sheet, without sparsity): B1's filter product runs at it.
+H100_TF32_FLOPS = 494.7e12
 # Query tile of the served IVF-Flat index. A 128-row serving batch holds
 # unrelated queries, so with the default 128-row tile its probe union
 # overflows the tile's table of fused_probe_factor * n_probes / group units
@@ -331,20 +334,34 @@ def _filled_work(tile_probes, probe_valid, filled):
     return per_tile, distinct
 
 
-def flat_bound_ms(fi, k: int) -> tuple:
-    """Least time for one fused_list_topk call on these inputs: 2·qt·d FP32
-    operations per filled slot of each tile's valid units (empty slots
-    need none) vs the filled rows of the probed units, queries, probe
-    tables and outputs moved once."""
+def flat_bound_ms(fi, k: int) -> dict:
+    """Least time for one fused_list_topk call on these inputs, the larger
+    of two: one dense TF32 pass of the ``qt x filled rows x d`` product on
+    the tensor cores (2·qt·d operations per filled slot of each tile's
+    valid units; empty slots need none), and the filled rows of the
+    distinct probed units (their ``d`` elements, norm and id), the
+    queries, probe tables and outputs moved once. ``bound_term`` names
+    which; ``fp32_bound_ms`` is the same product on the FP32 pipes, the
+    form the FMA kernel had; ``reread_ms`` the filled rows summed over the
+    tiles at the HBM rate (what the call pays if no tile's rows hit L2)."""
     n_units, gm, d = fi.list_data.shape
     n_qt = fi.tile_probes.shape[0]
     qt = fi.queries_sorted.shape[0] // n_qt
     filled = (fi.list_indices >= 0).sum(dim=1).to(torch.float64)
     rows, distinct = _filled_work(fi.tile_probes, fi.probe_valid, filled)
     item = fi.list_data.element_size()
-    return bound_ms(2.0 * qt * d * rows,
-                    distinct * (d * item + 8) + fi.queries_sorted.numel() * 4
-                    + fi.tile_probes.numel() * 8 + fi.queries_sorted.shape[0] * k * 8)
+    flops = 2.0 * qt * d * rows
+    terms = {
+        "bytes": (distinct * (d * item + 8) + fi.queries_sorted.numel() * 4
+                  + fi.tile_probes.numel() * 8 + fi.queries_sorted.shape[0] * k * 8)
+        / H100_HBM_BYTES_S * 1e3,
+        "tf32_product": flops / H100_TF32_FLOPS * 1e3,
+    }
+    term = max(terms, key=terms.get)
+    return dict(bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, bound_terms_ms=terms,
+                fp32_bound_ms=flops / H100_FP32_FLOPS * 1e3,
+                reread_ms=rows * (d * item + 8) / H100_HBM_BYTES_S * 1e3)
 
 
 def pq_bound_ms(a, k: int) -> tuple:
@@ -603,13 +620,249 @@ def rabitq_equal(what: str, kv, ks, rv, rs) -> float:
     return err
 
 
-def flat_args(index, queries, params):
+def topk_digest(vals, slots) -> str:
+    """A short digest of a top-k result's value bits and slots, to compare
+    two trees' kernels."""
+    h = hashlib.sha1(vals.contiguous().view(torch.int32).cpu().numpy().tobytes())
+    h.update(slots.to(torch.int32).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def flat_split_line(card, phase: str, fi, metric, k: int, **tags) -> None:
+    """One launch of B1 with its stage clock on: the
+    ``fused_list_topk_split`` line (each stage's share of the warps'
+    cycles, the CTAs' cycles, chunks and candidates a CTA; ``filled_pairs``
+    the (query, filled row) pairs the call scores, from the tables)."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    qt = fi.queries_sorted.shape[0] // fi.tile_probes.shape[0]
+    rec = ivf_scan.fused_list_topk_stages(
+        fi.list_data, fi.list_norms, fi.list_indices, fi.queries_sorted, fi.tile_probes,
+        fi.probe_valid, k=k, metric=metric, qt=qt)
+    rows, _ = _filled_work(fi.tile_probes, fi.probe_valid,
+                           (fi.list_indices >= 0).sum(dim=1).to(torch.float64))
+    emit(card, phase=phase, metric="fused_list_topk_split", k=k, filled_pairs=qt * rows,
+         **stage_split(rec, ivf_scan.STAGES, ivf_scan.COUNTS), **tags)
+
+
+def call_ops_line(card, phase: str, run, reps: int = 10, **tags) -> None:
+    """One call's device operations (torch.profiler over ``reps`` calls):
+    device µs a call by operation and in all, and the host µs a call takes
+    to return (enqueue only, the card idle before it; median); the
+    ``fused_list_topk_call_ops`` line. One call runs under PyTorch's sync
+    debug mode, which warns on stderr where the call waits on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")  # a call that waits on the card says so on stderr
+    run()
+    torch.cuda.set_sync_debug_mode(0)
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)
+    emit(card, phase=phase, metric="fused_list_topk_call_ops", reps=reps,
+         device_us_per_call=sum(e.self_device_time_total for e in dev) / reps,
+         device_ops_per_call=sum(e.count for e in dev) / reps,
+         host_us_per_call=float(np.median(host)) * 1e6,
+         ops={e.key[:70]: [e.count / reps, e.self_device_time_total / reps] for e in dev[:12]},
+         **tags)
+
+
+def flat_filter_line(card, phase: str, fi, metric, k: int, kv, ks, **tags) -> None:
+    """One launch of B1's checking instantiation, whose filter lets every
+    filled row through and which computes every exact score beside its
+    lower bound: its result ``torch.equal`` to the filtered launch's
+    (``kv``, ``ks``), and the ``fused_list_topk_filter`` line (violations
+    of the lower bound, asserted 0; survivors of the filter a query next to
+    the chunks a tile scans; the share of the pairs re-scored), with the
+    CTA plan and grid."""
+    from raft_tpu_torch.ops import ivf_scan
+
+    qt = fi.queries_sorted.shape[0] // fi.tile_probes.shape[0]
+    cv, cs, counts = ivf_scan.fused_list_topk_check(
+        fi.list_data, fi.list_norms, fi.list_indices, fi.queries_sorted, fi.tile_probes,
+        fi.probe_valid, k=k, metric=metric, qt=qt)
+    if not (torch.equal(cv.view(torch.int32), kv.view(torch.int32)) and torch.equal(cs, ks)):
+        raise AssertionError(f"B1 at {tags}: the filtered launch differs from the checking one "
+                             f"({int((cs != ks).sum())} slots)")
+    _, n_work = ivf_scan.work_list(fi.tile_probes, fi.probe_valid,
+                                   ivf_scan.chunk_table(fi.list_indices))
+    plan, tiles = ivf_scan.launch_plan(fi.list_data.shape[2], k, fi.list_data.element_size(), qt,
+                                       fi.tile_probes.shape[0],
+                                       metric == ivf_scan.DistanceType.CosineExpanded)
+    n_qt = fi.tile_probes.shape[0]
+    emit(card, phase=phase, metric="fused_list_topk_filter", violations=counts["violations"],
+         survivors_per_query=counts["survivors"] / (n_qt * qt),
+         chunks_per_tile=float(n_work.to(torch.float64).mean()),
+         rescored_share=counts["survivors"] / max(1, counts["pairs"]), pairs=counts["pairs"],
+         queries_per_cta=plan.queries, tiles_per_cta=tiles, qglobal=plan.qglobal,
+         smem_bytes=plan.smem_bytes, grid=list(ivf_scan.fused_list_topk.last_grid), k=k, **tags)
+    if counts["violations"] != 0:
+        raise AssertionError(f"B1's filter bound failed {counts['violations']} times at {tags}")
+
+
+def flat_checks(card, seed: int, res, X_mid, Q_mid, max_err, this_tree: bool = True) -> None:
+    """Phase 2's B1 checks, each against its plain version (``compare_topk``)
+    with one CTA per tile share and with the default split: IVF-Flat
+    indexes of 65,536 rows (64 lists, ``n_probes=8``, 512 queries) at d =
+    128 for the four metrics and int8 and bf16 lists at k = 10 and 100
+    (128-query tiles), with k = 256 and tiles of 16 and 24 queries; at d =
+    100 (not a multiple of the product's k-step; f32 under L2, IP and
+    cosine, bf16 and uint8 lists) and d = 960 (several 128-wide depth
+    slices; two staged a block) with a filter bitset (70 % of the ids
+    kept), tiles of 128, 24 and 16 queries, k = 10, 100 and 256; and on
+    16,384 rows at d = 3,072 (the queries read through the caches). Each
+    line carries a digest of the values and slots, to hold two trees'
+    kernels to the same bits. Per
+    shape one launch of the checking build, equal to the filtered one with
+    no violation of the filter's bound (:func:`flat_filter_line`; this tree
+    only). B1 at d = 960 (128-query tiles, k = 10, no filter) is timed
+    beside its plain version (``fused_list_topk_ms_d960``) with its stage
+    split. The other data and filters draw from
+    their own seeds and build with their own ``Resources`` (whose generator
+    the d = 128 builds share with the later phases, as before), so the
+    later phases see the data and indexes they saw before."""
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import ivf_flat
+
+    rng = np.random.default_rng([seed, 9])
+    own_res = Resources(device="cuda", seed=seed)
+    data = {(128, "float32"): X_mid,
+            (128, "int8"): np.clip(np.round(X_mid * 12), -127, 127).astype(np.int8),
+            (128, "bfloat16"): torch.from_numpy(X_mid).to(torch.bfloat16)}
+    queries = {128: Q_mid}
+    for dim in (100, 960, 3072):
+        gen = Clustered(np.random.default_rng([seed, 9, dim]), dim, 512)
+        x = gen.sample(16384 if dim == 3072 else 65536)
+        queries[dim] = torch.from_numpy(gen.sample(512)).cuda()
+        data[(dim, "float32")] = x
+        if dim == 100:
+            data[(dim, "bfloat16")] = torch.from_numpy(x).to(torch.bfloat16)
+            data[(dim, "uint8")] = np.clip(np.round(x * 12) + 128, 0, 255).astype(np.uint8)
+    l2, ip, cos = "sqeuclidean", "inner_product", "cosine"
+    # (d, dtype, metric, fused_qt, filtered, k)
+    shapes = [(128, "float32", m, 128, False, k) for m in (l2, "euclidean", ip, cos)
+              for k in (10, 100)]
+    shapes += [(128, dt, l2, 128, False, k) for dt in ("int8", "bfloat16") for k in (10, 100)]
+    shapes += [(128, "float32", l2, 128, False, 256), (128, "float32", l2, 16, False, 256),
+               (128, "float32", l2, 16, True, 10), (128, "float32", l2, 24, True, 10),
+               (128, "float32", ip, 24, True, 100)]
+    shapes += [(100, "float32", l2, 128, True, 10), (100, "float32", ip, 24, True, 100),
+               (100, "float32", cos, 16, True, 10), (100, "bfloat16", l2, 128, True, 10),
+               (100, "uint8", l2, 24, True, 256)]
+    shapes += [(960, "float32", l2, 128, False, 10), (960, "float32", l2, 128, True, 10),
+               (960, "float32", ip, 16, True, 100), (960, "float32", l2, 24, True, 256)]
+    shapes += [(3072, "float32", l2, 128, False, 10)]
+    indexes = {}
+    for dim, dtype, metric, qt, filtered, k in shapes:
+        key = (dim, dtype, metric)
+        if key not in indexes:
+            indexes[key] = ivf_flat.build(data[(dim, dtype)],
+                                          ivf_flat.IvfFlatIndexParams(n_lists=64, metric=metric),
+                                          res=res if dim == 128 else own_res)
+        index = indexes[key]
+        bits = None
+        if filtered:
+            keep = np.packbits(rng.random(-(-index.size // 32) * 32) < 0.7, bitorder="little")
+            bits = torch.from_numpy(keep.view(np.int32).copy()).cuda()
+        params = dataclasses.replace(ivf_flat.IvfFlatSearchParams(n_probes=8), fused_qt=qt)
+        fi = flat_args(index, queries[dim], params, bits)
+        tags = dict(d=dim, dtype=dtype, fused_qt=qt, filtered=filtered, k=k)
+        run = lambda a, kk, **kw: run_flat(a, kk, index.metric, **kw)
+        rv, rs = run(fi, k, reference=True)
+        for n_split in (1, None):  # one CTA per tile share, and the default split
+            kv, ks = run(fi, k, n_split=n_split)
+            torch.cuda.synchronize()
+            err = compare_topk(kv, ks, rv, rs)
+            max_err["fused_list_topk"] = max(max_err["fused_list_topk"], err)
+            emit(card, phase="kernel_vs_plain", kernel="fused_list_topk", metric=metric, k=k,
+                 n_split=n_split or "auto", max_abs_err=err, digest=topk_digest(kv, ks),
+                 **{x: v for x, v in tags.items() if x != "k"})
+        if this_tree:
+            flat_filter_line(card, "kernel_vs_plain", fi, index.metric, k, kv, ks, distance=metric,
+                             **{x: v for x, v in tags.items() if x != "k"})
+        if dim == 960 and (qt, filtered, k) == (128, False, 10):
+            emit(card, phase="kernel_vs_plain", metric="fused_list_topk_ms_d960", **tags,
+                 distance=metric, ms=cuda_ms(lambda: run(fi, k), reps=5),
+                 plain_ms=cuda_ms(lambda: run(fi, k, reference=True), reps=1),
+                 **flat_bound_ms(fi, k))
+            if this_tree:
+                flat_split_line(card, "kernel_vs_plain", fi, index.metric, k,
+                                **{x: v for x, v in tags.items() if x != "k"})
+    del indexes
+
+
+def b1_main(card, index, Qt, params, k: int, max_err, this_tree: bool = True,
+            phase: str = "main") -> dict:
+    """B1 at the main path's shapes on the 1M index: one 128-row serving
+    batch at ``fused_qt=SERVE_QT``, and the 10,000-query batch at
+    ``params.fused_qt`` (79 sorted 128-query tiles). Each against its plain
+    version (``compare_topk``), timed beside its bounds
+    (:func:`flat_bound_ms`), with a digest of its values and slots (to
+    compare trees) and its stage split (this tree only). Returns the
+    serving batch's times and bounds."""
+    serve_params = dataclasses.replace(params, fused_qt=SERVE_QT)
+    run_b1 = lambda a, kk, **kw: run_flat(a, kk, index.metric, **kw)
+    fi = flat_args(index, Qt[:128], serve_params)
+    kv, ks = run_b1(fi, k)
+    rv, rs = run_b1(fi, k, reference=True)
+    max_err["fused_list_topk"] = max(max_err["fused_list_topk"], compare_topk(kv, ks, rv, rs))
+    b1 = time_kernel(run_b1, fi, k, reps=20)
+    b1.update(flat_bound_ms(fi, k))
+    emit(card, phase=phase, metric="fused_list_topk_ms_serving_batch", value=b1["ms"],
+         **{x: v for x, v in b1.items() if x != "ms"}, fused_qt=SERVE_QT,
+         n_qt=int(fi.tile_probes.shape[0]), valid_units=int((fi.probe_valid > 0).sum()),
+         unit_rows=int(fi.list_data.shape[1]),
+         filled_slot_share=float((fi.list_indices >= 0).to(torch.float32).mean()),
+         digest=topk_digest(kv, ks))
+    if this_tree:
+        flat_split_line(card, phase, fi, index.metric, k, queries=128, fused_qt=SERVE_QT)
+        flat_filter_line(card, phase, fi, index.metric, k, kv, ks, queries=128, fused_qt=SERVE_QT)
+    call_ops_line(card, phase, lambda: run_b1(fi, k), queries=128, fused_qt=SERVE_QT)
+    # and at the 10,000-query batch's shapes (79 sorted 128-query tiles)
+    fi_all = flat_args(index, Qt, params)
+    n_qt = fi_all.tile_probes.shape[0]
+    kv, ks = run_b1(fi_all, k)
+    rv, rs = run_b1(fi_all, k, reference=True)
+    max_err["fused_list_topk"] = max(max_err["fused_list_topk"], compare_topk(kv, ks, rv, rs))
+    bound = flat_bound_ms(fi_all, k)
+    emit(card, phase=phase, metric="fused_list_topk_ms_per_tile_10k_batch",
+         value=cuda_ms(lambda: run_b1(fi_all, k), reps=3) / n_qt,
+         **{x: (v / n_qt if x.endswith("_ms") else v) for x, v in bound.items()
+            if x != "bound_terms_ms"},
+         n_qt=n_qt, fused_qt=params.fused_qt,
+         valid_units_per_tile=float((fi_all.probe_valid > 0).sum()) / n_qt,
+         digest=topk_digest(kv, ks))
+    if this_tree:
+        flat_split_line(card, phase, fi_all, index.metric, k, queries=Qt.shape[0],
+                        fused_qt=params.fused_qt)
+        flat_filter_line(card, phase, fi_all, index.metric, k, kv, ks, queries=Qt.shape[0],
+                         fused_qt=params.fused_qt)
+    return b1
+
+
+def flat_args(index, queries, params, filter_bits=None):
+    """B1's inputs on the search path's shapes (``filter_bits``: an int32
+    bitset over the index's ids, folded into the list ids as the search
+    does)."""
     from raft_tpu_torch.neighbors import ivf_flat
     from raft_tpu_torch.ops import ivf_scan
 
     return ivf_scan.fused_search_inputs(
         index.centers, index.center_rank, index.list_data, index.list_indices,
-        index.list_norms, queries, None, n_probes=params.n_probes, metric=index.metric,
+        index.list_norms, queries, filter_bits, n_probes=params.n_probes, metric=index.metric,
         qt=params.fused_qt, probe_factor=params.fused_probe_factor,
         group=ivf_flat.fused_group(index, params),
     )
@@ -976,7 +1229,7 @@ def ring_checks(card: str, rng, max_err: dict) -> None:
 
 
 #: the parts ``--phases`` runs alone
-PHASE_PARTS = ("paths", "ring", "b3", "rabitq")
+PHASE_PARTS = ("paths", "ring", "b1", "b3", "rabitq")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
@@ -984,18 +1237,38 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
     makes from ``seed``, in this order: ``paths`` (:func:`paths_ms`),
     ``ring`` (phase 2's ring checks and lines, :func:`ring_checks`), ``b3``
     (phase 2's B3 checks, :func:`rabitq_checks`) and ``rabitq`` (phase 5,
-    :func:`rabitq_phase`, on the 1M set and its exact neighbours). Each
+    :func:`rabitq_phase`, on the 1M set and its exact neighbours); ``b1``
+    runs first: phase 2's B1 checks (:func:`flat_checks`), then B1 at the
+    main path's two shapes on the 1M IVF-Flat index (:func:`b1_main`). Each
     builds the kernels it launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the B3 lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
-    from raft_tpu_torch.neighbors import brute_force, ivf_pq
-    from raft_tpu_torch.ops import rabitq_scan
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import ivf_scan, rabitq_scan
     from raft_tpu_torch.ops import ring_topk as rt
 
     if "paths" in parts:
         paths_ms(card, tree, seed)
     max_err = {}
+    if "b1" in parts:
+        _, build_s, log = ivf_scan.build_kernel(True)
+        emit(card, phase="build", kernel="fused_list_topk", build_s=build_s,
+             ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
+        max_err["fused_list_topk"] = 0.0
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        X_mid = gen.sample(65536)
+        Q_mid = torch.from_numpy(gen.sample(512)).cuda()
+        flat_checks(card, seed, Resources(device="cuda", seed=seed), X_mid, Q_mid, max_err,
+                    this_tree)
+        gen = Clustered(rng, 128, 4096)
+        X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024),
+                               res=Resources(device="cuda", seed=seed))
+        b1_main(card, index, torch.from_numpy(Q).cuda(), ivf_flat.IvfFlatSearchParams(n_probes=20),
+                10, max_err, this_tree, phase="b1")
+        del index
     if "ring" in parts:
         _, build_s, log = rt.build_kernel(True)
         emit(card, phase="build", kernel="ring_topk", build_s=build_s,
@@ -1102,20 +1375,7 @@ def main() -> int:
     gen = Clustered(rng, d, 512)
     X_mid = gen.sample(65536)
     Q_mid = torch.from_numpy(gen.sample(512)).cuda()
-    for metric, dtype in [(m, "float32") for m in ("sqeuclidean", "euclidean", "inner_product",
-                                                   "cosine")] + [("sqeuclidean", "int8"),
-                                                                 ("sqeuclidean", "bfloat16")]:
-        if dtype == "int8":
-            data = np.clip(np.round(X_mid * 12), -127, 127).astype(np.int8)
-        elif dtype == "bfloat16":
-            data = torch.from_numpy(X_mid).to(torch.bfloat16)
-        else:
-            data = X_mid
-        index = ivf_flat.build(data, ivf_flat.IvfFlatIndexParams(n_lists=64, metric=metric), res=res)
-        fi = flat_args(index, Q_mid, ivf_flat.IvfFlatSearchParams(n_probes=8))
-        for k in (10, 100):
-            check("fused_list_topk", lambda a, kk, **kw: run_flat(a, kk, index.metric, **kw), fi, k,
-                  metric, dtype=dtype)
+    flat_checks(card, args.seed, res, X_mid, Q_mid, max_err)
     mid_pq = ivf_pq.IvfPqSearchParams(n_probes=8, fused_qt=32)
     for label, kw, as_u8 in [("nib8", {}, False),
                              ("p4", dict(pq_kind="kmeans", pq_bits=4), False),
@@ -1243,33 +1503,10 @@ def main() -> int:
              valid_units_per_tile=float((fi_qt.probe_valid > 0).sum()) / fi_qt.tile_probes.shape[0],
              units=int(fi_qt.list_data.shape[0]))
 
-    # the kernel at the serving path's shapes: one 128-row batch
-    run_b1 = lambda a, kk, **kw: run_flat(a, kk, index.metric, **kw)
-    fi = flat_args(index, Qt[:128], serve_params)
-    kv, ks = run_b1(fi, k)
-    rv, rs = run_b1(fi, k, reference=True)
-    max_err["fused_list_topk"] = max(max_err["fused_list_topk"], compare_topk(kv, ks, rv, rs))
-    b1 = time_kernel(run_b1, fi, k, reps=20)
-    b1["bound_ms"], b1["bound_by"] = flat_bound_ms(fi, k)
-    emit(card, phase="main", metric="fused_list_topk_ms_serving_batch", value=b1["ms"],
-         bound_ms=b1["bound_ms"], bound_by=b1["bound_by"], plain_ms=b1["plain_ms"],
-         n_split_ms=b1["n_split_ms"], fused_qt=SERVE_QT, n_qt=int(fi.tile_probes.shape[0]),
-         valid_units=int((fi.probe_valid > 0).sum()), unit_rows=int(fi.list_data.shape[1]),
-         filled_slot_share=float((fi.list_indices >= 0).to(torch.float32).mean()))
-    # and at the 10,000-query batch's shapes (79 sorted 128-query tiles)
-    fi_all = flat_args(index, Qt, params)
-    n_qt = fi_all.tile_probes.shape[0]
-    kv, ks = run_b1(fi_all, k)
-    rv, rs = run_b1(fi_all, k, reference=True)
-    max_err["fused_list_topk"] = max(max_err["fused_list_topk"], compare_topk(kv, ks, rv, rs))
-    all_bound, all_by = flat_bound_ms(fi_all, k)
-    emit(card, phase="main", metric="fused_list_topk_ms_per_tile_10k_batch",
-         value=cuda_ms(lambda: run_b1(fi_all, k), reps=3) / n_qt,
-         bound_ms=all_bound / n_qt, bound_by=all_by, n_qt=n_qt,
-         valid_units_per_tile=float((fi_all.probe_valid > 0).sum()) / n_qt)
+    # the kernel at the serving path's shapes
+    b1 = b1_main(card, index, Qt, params, k, max_err)
     if args.profile:
         profile_backlog(card, eng, "sift1m", Q, starts, sizes, k, "serve_backlog_trace.json")
-    del fi_all
 
     # ---- phase 4: IVF-PQ at full width ------------------------------------
     X_card = torch.from_numpy(X).cuda()

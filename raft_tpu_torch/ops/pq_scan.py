@@ -50,7 +50,12 @@ import torch
 from raft_tpu_torch.core.errors import RaftError, expects
 from raft_tpu_torch.ops.cuda_build import build_library
 from raft_tpu_torch.ops.distance import DistanceType
-from raft_tpu_torch.ops.ivf_scan import MAX_K, MAX_SPLIT, build_tile_probe_tables
+from raft_tpu_torch.ops.ivf_scan import (
+    MAX_K,
+    MAX_SPLIT,
+    SMEM_LIMIT_BYTES,
+    build_tile_probe_tables,
+)
 from raft_tpu_torch.ops.select_k import select_k
 from raft_tpu_torch.utils.math import cdiv
 
@@ -73,8 +78,6 @@ _ROW_GROUP = 32
 #: chunks a CTA takes from its (tile, query group)'s work list at a time
 #: (``ITEM`` in the .cu)
 CHUNKS_PER_ITEM = 8
-#: dynamic shared memory one block may use on an H100 (227 KB)
-SMEM_LIMIT_BYTES = 232448
 _MODE_CODE = {"u8": 0, "nib8": 1, "p4": 2, "b3": 3, "b5": 5, "b6": 6, "b7": 7}
 
 _SIGNATURES = {

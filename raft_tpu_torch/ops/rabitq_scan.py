@@ -45,7 +45,13 @@ import torch
 from raft_tpu_torch.core.errors import RaftError, expects
 from raft_tpu_torch.ops.cuda_build import build_library
 from raft_tpu_torch.ops.distance import DistanceType
-from raft_tpu_torch.ops.ivf_scan import MAX_K, MAX_SPLIT
+from raft_tpu_torch.ops.ivf_scan import (
+    CTA_RESERVED_BYTES,
+    MAX_K,
+    MAX_SPLIT,
+    SM_SMEM_BYTES,
+    work_list,
+)
 from raft_tpu_torch.ops.pq_scan import (
     SMEM_LIMIT_BYTES,
     code_scan_inputs,
@@ -77,9 +83,6 @@ ROWS_PER_CHUNK = (128, 64)
 #: core's sums and of the plain version's, per dimension (both are at most
 #: about one unit of 2^-23 of sum |q| a dimension; 8 leaves room)
 _ERROR_C = 8.0
-#: shared memory an H100 SM holds for its CTAs, and what each CTA reserves
-_SM_SMEM_BYTES = 233472
-_CTA_RESERVED_BYTES = 1024
 _SLOT_EMPTY = 2 ** 31 - 1
 #: +inf as the kernel's ordered int key of a float (its shared k-th scores)
 _INF_KEY = 0x7F800000
@@ -169,7 +172,7 @@ def cta_plan(rot_dim: int, k: int, g_lists: int, qt: int = QUERIES_PER_CTA[0]) -
             smem = cta_smem_bytes(qb, rot_dim, k, g_lists, rows, mode)
             if smem <= SMEM_LIMIT_BYTES:
                 per_sm = min(2048 // (32 * qb // _QUERIES_PER_WARP),
-                             _SM_SMEM_BYTES // (smem + _CTA_RESERVED_BYTES))
+                             SM_SMEM_BYTES // (smem + CTA_RESERVED_BYTES))
                 return CtaPlan(qb, rows, smem, per_sm, mode)
     least = cta_smem_bytes(QUERIES_PER_CTA[-1], rot_dim, k, g_lists, _ROUND, 2)
     raise RaftError(f"fused_rabitq_topk: k={k} with {g_lists} lists a unit does not fit shared "
@@ -223,31 +226,6 @@ def chunk_table(ln, rows: int) -> torch.Tensor:
     if pad:
         valid = torch.nn.functional.pad(valid, (0, pad))
     return valid.reshape(n_units, -1, rows).any(dim=2)
-
-
-def work_list(tile_probes, probe_valid, chunks, n_split: int = 1
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each tile's chunks to score, as the kernel takes them: ``(work,
-    n_work)``, int32 ``[n_qt, P * n_chunks]`` with each tile's ``n_work``
-    chunks that hold a valid slot (:func:`chunk_table`) of its valid probe
-    steps first, as entries ``unit * n_chunks + chunk``. The ``n_split``
-    CTAs that share a (tile, query group) take equal runs of them, so the
-    steps are dealt out in turn (step ``j`` to run ``j % n_split``, in step
-    order within a run): a tile's queries find most of their neighbours in
-    a few adjacent units, which one run would otherwise hold alone, with
-    most of the candidates. Computed on the tables' device without a sync."""
-    n_qt, P = tile_probes.shape
-    n_chunks = chunks.shape[1]
-    tp = tile_probes.to(torch.int64)
-    has = ((probe_valid > 0)[:, :, None] & chunks[tp]).reshape(n_qt, -1)
-    steps = torch.arange(P, device=tp.device)
-    rank = (((steps % n_split) * P + steps)[:, None] * n_chunks
-            + torch.arange(n_chunks, device=tp.device))
-    key = torch.where(has, rank.reshape(1, -1), n_split * P * n_chunks + rank.reshape(1, -1))
-    order = torch.argsort(key, dim=1)
-    entry = (tp[:, :, None] * n_chunks
-             + torch.arange(n_chunks, device=tp.device)).reshape(n_qt, -1)
-    return (torch.gather(entry, 1, order).to(torch.int32), has.sum(dim=1, dtype=torch.int32))
 
 
 def _check_args(codes, ln, corr, q_rot, centers_rot, tile_probes, probe_valid, k, metric, qt):
