@@ -1,7 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --phases paths,ring,b3,rabitq [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --phases paths,ring,b1,b3,rabitq,b4 [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -25,7 +25,9 @@ Phases, in order; any failure exits non-zero:
    CTA per tile share and with the default split; B4 ``cagra_fused_search``
    on CAGRA graphs of degree 16 and 32 built through the ``ivf_pq`` route,
    under L2 and IP, with f32 and bf16 tables, at (itopk, width) of (64, 1),
-   (64, 4) and (128, 8); then the build's determinism: the same IVF-Flat
+   (64, 4) and (128, 8), at (256, 16) on degree 32, at d = 100 and 960,
+   and on a random graph at d = 101, each bit-equal to its plain version
+   with a digest (:func:`cagra_checks`); then the build's determinism: the same IVF-Flat
    and IVF-PQ index built twice from one seed must be equal, and one build
    with the float-atomic sums the port used before is timed beside them;
 3. IVF-Flat at full width: a 1,000,000 x 128 f32 clustered dataset (the
@@ -63,8 +65,10 @@ Phases, in order; any failure exits non-zero:
    search_width=8, dedup="post")`` and the bf16 table in fused and xla mode
    on all 10,000 queries, an itopk sweep of 96/128/160, batch-1 and
    batch-10 latency through ``plan_search_params``, served through
-   ``ServingEngine`` both ways; B4 at the serving shape against its plain
-   version and its bound;
+   ``ServingEngine`` both ways; B4 at the serving shape, batch 1 and 10 and
+   a 1,024-query batch against its plain version and its bound, with its
+   stage split, its staging options timed, and the call profile of
+   ``cagra.search`` (:func:`b4_main`);
 7. sharded search at full width over ``make_mesh(["cuda:0"] * 4)``, four
    virtual shards on one card (a peer copy between them stays inside device
    memory): ``sharded_ivf_flat_search`` on phase 3's index (256 lists a
@@ -99,10 +103,12 @@ adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
 IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 (:func:`run_phases`): ``paths`` times the IVF-Flat search paths per call
 (:func:`paths_ms`), ``ring`` phase 2's ring checks and lines, ``b3``
-phase 2's B3 checks, ``rabitq`` phase 5; with ``--tree`` they import
+phase 2's B3 checks, ``rabitq`` phase 5, ``b1`` and ``b4`` phase 2's B1
+or B4 checks and then that kernel at the main path's shapes on the 1M
+index; with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
-one card, old / new / new / old, the B3 lines an older kernel cannot give
+one card, old / new / new / old, the lines an older kernel cannot give
 skipped.
 The last line is ``{"ok": true, "device": {...}}``, after the
 ``{"kernels": [...]}`` line and the card's name and power limit. Other
@@ -645,20 +651,29 @@ def flat_split_line(card, phase: str, fi, metric, k: int, **tags) -> None:
          **stage_split(rec, ivf_scan.STAGES, ivf_scan.COUNTS), **tags)
 
 
-def call_ops_line(card, phase: str, run, reps: int = 10, **tags) -> None:
+def call_ops_line(card, phase: str, run, reps: int = 10,
+                  metric: str = "fused_list_topk_call_ops", **tags) -> int:
     """One call's device operations (torch.profiler over ``reps`` calls):
     device µs a call by operation and in all, and the host µs a call takes
     to return (enqueue only, the card idle before it; median); the
-    ``fused_list_topk_call_ops`` line. One call runs under PyTorch's sync
-    debug mode, which warns on stderr where the call waits on the card."""
+    ``metric`` line. One call runs under PyTorch's sync debug mode, which
+    warns where the call waits on the card: the line counts the warnings
+    (``sync_warnings``, also returned) and quotes the first."""
+    import warnings
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")  # a call that waits on the card says so on stderr
-    run()
-    torch.cuda.set_sync_debug_mode(0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")  # a call that waits on the card says so
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught if "called a synchronizing" in str(w.message)]
     host = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -672,12 +687,13 @@ def call_ops_line(card, phase: str, run, reps: int = 10, **tags) -> None:
         torch.cuda.synchronize()
     dev = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)
-    emit(card, phase=phase, metric="fused_list_topk_call_ops", reps=reps,
+    emit(card, phase=phase, metric=metric, reps=reps,
          device_us_per_call=sum(e.self_device_time_total for e in dev) / reps,
          device_ops_per_call=sum(e.count for e in dev) / reps,
          host_us_per_call=float(np.median(host)) * 1e6,
          ops={e.key[:70]: [e.count / reps, e.self_device_time_total / reps] for e in dev[:12]},
-         **tags)
+         sync_warnings=len(syncs), first_sync_warning=syncs[0][:200] if syncs else None, **tags)
+    return len(syncs)
 
 
 def flat_filter_line(card, phase: str, fi, metric, k: int, kv, ks, **tags) -> None:
@@ -996,6 +1012,189 @@ def b4_bound_ms(a, work) -> tuple:
                     work["rows"] * d * table.element_size() + work["ids"] * 4 + qf.numel() * 4 + beams)
 
 
+def b4_check(card, cg, queries, itopk: int, width: int, ip: bool, table_dtype: str, max_err,
+             this_tree: bool = True, **tags) -> None:
+    """B4 at one shape against its plain version (:func:`compare_beam`), with
+    a digest of the beam's value bits and ids (to hold two trees' kernels
+    to the same bits), and, for this tree's kernel, the plan it took."""
+    from raft_tpu_torch.ops import cagra_search
+
+    a = b4_args(cg, queries, itopk, width, ip, table_dtype)
+    rv, ri = run_b4(a, reference=True)
+    kv, ki = run_b4(a)
+    torch.cuda.synchronize()
+    err = compare_beam(kv, ki, rv, ri)
+    max_err["cagra_fused_search"] = max(max_err["cagra_fused_search"], err)
+    emit(card, phase="kernel_vs_plain", kernel="cagra_fused_search", graph_degree=cg.graph_degree,
+         d=cg.dim, metric="InnerProduct" if ip else "L2Expanded", table=table_dtype,
+         itopk=itopk, width=width, iters=a["kw"]["iters"], queries=queries.shape[0],
+         max_abs_err=err, live_slots=float((ki >= 0).to(torch.float32).mean()),
+         digest=topk_digest(kv, ki),
+         plan=dataclasses.asdict(cagra_search.cagra_fused_search.last_plan) if this_tree else None,
+         **tags)
+    return a, rv, ri
+
+
+def b4_plan_times(card, phase: str, a, rv, ri, plans, reps: int = 10, **tags) -> None:
+    """B4 launched with each of ``plans`` (``(group_rows, buffers,
+    bitonic)``; this tree's kernel) on the inputs ``a``: each bit-equal to
+    the plain version's beam ``rv``/``ri``, timed (ms a call); the
+    ``cagra_fused_search_plans`` line, beside the plan the wrapper takes."""
+    from raft_tpu_torch.ops import cagra_search as cs
+
+    table, _, qf, _, _ = a["args"]
+    kw = a["kw"]
+    chosen = None
+    times = {}
+    for rows, bufs, bitonic in plans:
+        smem = cs.smem_bytes(kw["itopk"], kw["width"], table.shape[1], qf.shape[1],
+                             table.element_size(), rows, bufs, bitonic)
+        if smem > cs.SMEM_LIMIT_BYTES:
+            continue
+        plan = cs.BeamPlan(rows, bufs, bitonic, smem, 0)
+        kv, ki, _ = cs._launch(*a["args"], **kw, plan=plan)
+        compare_beam(kv, ki, rv, ri)
+        times[f"{rows}x{bufs}{'_bitonic' if bitonic else '_rank'}"] = cuda_ms(
+            lambda: cs._launch(*a["args"], **kw, plan=plan), reps=reps)
+    run_b4(a)
+    chosen = cs.cagra_fused_search.last_plan
+    emit(card, phase=phase, metric="cagra_fused_search_plans", ms=times,
+         chosen=dataclasses.asdict(chosen), queries=qf.shape[0], itopk=kw["itopk"],
+         width=kw["width"], graph_degree=table.shape[1], d=qf.shape[1], **tags)
+
+
+def cagra_checks(card, seed: int, res, X_mid, Q_mid, max_err, this_tree: bool = True) -> None:
+    """Phase 2's B4 checks, each against its plain version with a digest
+    (:func:`b4_check`): CAGRA graphs of degree 16 and 32 built through the
+    ``ivf_pq`` route on the 65,536 x 128 set, under L2 and IP, with f32
+    and bf16 tables, at (itopk, width) of (64, 1), (64, 4) and (128, 8),
+    and at degree 32 (256, 16) with an f32 table (a union of 768); then
+    degree-16 graphs at d = 100 (65,536 rows) and d = 960 (16,384 rows,
+    whose rows do not all fit in shared memory at once) at (128, 8) in both
+    dtypes and metrics, and (64, 1) at d = 100; and on a random degree-16
+    graph over 4,096 rows at d = 101, whose rows copy 4 bytes (f32) and 2
+    bytes (bf16) at a time, (64, 4) in both dtypes. For this tree's kernel,
+    the degree-32 shapes at (128, 8) and (256, 16) are timed with the rank
+    merge and with the bitonic sort (:func:`b4_plan_times`). The d = 128
+    graphs build with ``res`` (whose generator the later phases share, as
+    before); the others draw their data from their own seeds and build with
+    their own ``Resources``."""
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import cagra
+
+    for deg in (16, 32):
+        cg = cagra.build(X_mid, cagra.CagraIndexParams(intermediate_graph_degree=2 * deg,
+                                                       graph_degree=deg, build_algo="ivf_pq"), res=res)
+        for table_dtype in ("float32", "bfloat16"):
+            for ip in (False, True):
+                for itopk, width in ((64, 1), (64, 4), (128, 8)):
+                    got = b4_check(card, cg, Q_mid, itopk, width, ip, table_dtype, max_err, this_tree)
+                    if this_tree and deg == 32 and (itopk, ip, table_dtype) == (128, False, "float32"):
+                        b4_plan_times(card, "kernel_vs_plain", *got,
+                                      [(256, 1, False), (256, 1, True)], reps=5)
+        if deg == 32:
+            for ip in (False, True):
+                got = b4_check(card, cg, Q_mid, 256, 16, ip, "float32", max_err, this_tree)
+                if this_tree and not ip:
+                    b4_plan_times(card, "kernel_vs_plain", *got,
+                                  [(128, 2, False), (128, 2, True)], reps=5)
+        del cg
+    own_res = Resources(device="cuda", seed=seed)
+    for dim, rows in ((100, 65536), (960, 16384)):
+        gen = Clustered(np.random.default_rng([seed, 10, dim]), dim, 512)
+        x = gen.sample(rows)
+        q = torch.from_numpy(gen.sample(512)).cuda()
+        cg = cagra.build(x, cagra.CagraIndexParams(intermediate_graph_degree=32, graph_degree=16,
+                                                   build_algo="ivf_pq"), res=own_res)
+        for table_dtype in ("float32", "bfloat16"):
+            for ip in (False, True):
+                b4_check(card, cg, q, 128, 8, ip, table_dtype, max_err, this_tree)
+        if dim == 100:
+            b4_check(card, cg, q, 64, 1, False, "float32", max_err, this_tree)
+        del cg
+    rng = np.random.default_rng([seed, 10, 101])
+    x = torch.from_numpy(rng.standard_normal((4096, 101), dtype=np.float32)).cuda()
+    graph = torch.from_numpy(rng.integers(-1, 4096, (4096, 16)).astype(np.int32)).cuda()
+    cg = cagra.from_graph(x, graph, "sqeuclidean", device="cuda")
+    q = torch.from_numpy(rng.standard_normal((256, 101), dtype=np.float32)).cuda()
+    for table_dtype in ("float32", "bfloat16"):
+        b4_check(card, cg, q, 64, 4, False, table_dtype, max_err, this_tree, graph="random")
+
+
+def b4_main(card, cg, Qt, k: int, max_err, this_tree: bool = True, phase: str = "cagra") -> dict:
+    """B4 at the main path's shapes on the 1M CAGRA index (itopk 128, the
+    bf16 table): the 128-row serving batch (``width`` 8, 16,384 seeds),
+    batch 1 and batch 10 as ``plan_search_params`` plans them, and the
+    first 1,024-query batch of the 10,000-query search. Each against its
+    plain version (:func:`compare_beam`, a digest of its bits), timed beside
+    its bound and plain time, with µs a step (``per_step_us``) and, for
+    this tree's kernel, its stage split (``cagra_fused_search_split``).
+    ``chain_floor_ms`` is the fetch stage's share of the warps' cycles at
+    batch 1 times the batch-1 kernel time: the time one query's chain of
+    fetches takes when nothing competes, this design's measured floor, not
+    a bound. Then the call profile of ``cagra.search`` at 128 rows and at
+    batch 1 (``cagra_search_call_ops``). Returns the serving batch's
+    numbers."""
+    from raft_tpu_torch.neighbors import cagra
+    from raft_tpu_torch.ops import cagra_search
+
+    n = cg.size
+    cp = cagra.CagraSearchParams(itopk_size=128, search_width=8, dedup="post",
+                                 init_sample=SERVE_INIT_SAMPLE)
+    small = {bq: cagra.plan_search_params(bq, k, n, cagra.CagraSearchParams(itopk_size=128,
+                                                                            dedup="post"))
+             for bq in (1, 10)}
+    shapes = [("serving_batch", Qt[:128], cp), ("batch_1", Qt[:1], small[1]),
+              ("batch_10", Qt[:10], small[10]), ("10k_search_batch", Qt[:1024], cp)]
+    staged = this_tree and hasattr(cagra_search, "cagra_fused_search_stages")
+    out = {}
+    inputs = {}
+    for name, qs, sp in shapes:
+        a = b4_args(cg, qs, sp.itopk_size, sp.search_width, False, sp.fused_table_dtype, k=k,
+                    init_sample=sp.init_sample)
+        work = {}
+        rv, ri = run_b4(a, reference=True, work=work)
+        kv, ki = run_b4(a)
+        max_err["cagra_fused_search"] = max(max_err["cagra_fused_search"],
+                                            compare_beam(kv, ki, rv, ri))
+        inputs[name] = (a, rv, ri)
+        iters = a["kw"]["iters"]
+        row = dict(ms=cuda_ms(lambda: run_b4(a), reps=20),
+                   plain_ms=cuda_ms(lambda: run_b4(a, reference=True), reps=1))
+        row["bound_ms"], row["bound_by"] = b4_bound_ms(a, work)
+        row["per_step_us"] = row["ms"] * 1e3 / iters
+        full = qs.shape[0] * iters * sp.search_width * cg.graph_degree
+        emit(card, phase=phase, metric=f"cagra_fused_search_ms_{name}", value=row["ms"],
+             **{x: v for x, v in row.items() if x != "ms"}, queries=qs.shape[0], iters=iters,
+             width=sp.search_width, init_sample=sp.init_sample, rows_scored=work["rows"],
+             rows_at_most=full, formula_bound_ms=bound_ms(3.0 * full * cg.dim,
+                                                          full * (cg.dim * 2 + 4))[0],
+             digest=topk_digest(kv, ki))
+        if staged:
+            rec = cagra_search.cagra_fused_search_stages(*a["args"], **a["kw"])
+            row["split"] = stage_split(rec, cagra_search.STAGES, cagra_search.COUNTS)
+            emit(card, phase=phase, metric="cagra_fused_search_split", shape=name,
+                 queries=qs.shape[0], iters=iters, per_step_us=row["per_step_us"], **row["split"])
+        out[name] = row
+    if this_tree and hasattr(cagra_search, "launch_plan"):
+        # the staging options at the serving batch and the 1,024-query batch
+        w = 8 * cg.graph_degree
+        for name in ("serving_batch", "10k_search_batch"):
+            b4_plan_times(card, phase, *inputs[name],
+                          [(w, 1, False), (w // 4, 2, False), (w // 8, 2, False), (1, 2, False),
+                           (0, 0, False), (w, 1, True)], shape=name)
+    if staged:
+        floor = out["batch_1"]["split"]["stage_share"]["fetch"] * out["batch_1"]["ms"]
+        out["serving_batch"]["chain_floor_ms"] = floor
+        emit(card, phase=phase, metric="cagra_fused_search_chain_floor_ms", value=floor,
+             note="fetch share x batch-1 kernel ms: this design's measured floor, not a bound")
+    call_ops_line(card, phase, lambda: cagra.search(cg, Qt[:128], k, cp), metric="cagra_search_call_ops",
+                  queries=128)
+    call_ops_line(card, phase, lambda: cagra.search(cg, Qt[:1], k, small[1]),
+                  metric="cagra_search_call_ops", queries=1)
+    return out["serving_batch"]
+
+
 def fold_tiles(rng, rows: int, w: int, select_min: bool, parity: int):
     """A B5 input tile ``(key, pos, val, id)`` of ``[rows, w]`` on the card,
     unsorted: integer values (ties), signed zeros, ``±inf`` with real ids,
@@ -1229,7 +1428,7 @@ def ring_checks(card: str, rng, max_err: dict) -> None:
 
 
 #: the parts ``--phases`` runs alone
-PHASE_PARTS = ("paths", "ring", "b1", "b3", "rabitq")
+PHASE_PARTS = ("paths", "ring", "b1", "b3", "rabitq", "b4")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
@@ -1239,10 +1438,13 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
     (phase 2's B3 checks, :func:`rabitq_checks`) and ``rabitq`` (phase 5,
     :func:`rabitq_phase`, on the 1M set and its exact neighbours); ``b1``
     runs first: phase 2's B1 checks (:func:`flat_checks`), then B1 at the
-    main path's two shapes on the 1M IVF-Flat index (:func:`b1_main`). Each
-    builds the kernels it launches first. ``tree`` is the tree whose
+    main path's two shapes on the 1M IVF-Flat index (:func:`b1_main`);
+    ``b4`` last: phase 2's B4 checks (:func:`cagra_checks`), then the 1M
+    CAGRA index built as phase 6 builds it and B4 and ``cagra.search`` at
+    the main path's shapes (:func:`b4_main`). Each builds the kernels it
+    launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
-    then the B3 lines an older kernel cannot give are skipped."""
+    then the lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
     from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
     from raft_tpu_torch.ops import ivf_scan, rabitq_scan
@@ -1295,6 +1497,31 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
             _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
             rabitq_phase(card, res, X, torch.from_numpy(X).cuda(), torch.from_numpy(Q).cuda(),
                          gt_i, 10, 80, max_err, this_tree)
+    if "b4" in parts:
+        from raft_tpu_torch.neighbors import cagra
+        from raft_tpu_torch.ops import cagra_search
+
+        _, build_s, log = cagra_search.build_kernel(True)
+        emit(card, phase="build", kernel="cagra_fused_search", build_s=build_s,
+             ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
+        max_err["cagra_fused_search"] = 0.0
+        res = Resources(device="cuda", seed=seed)
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        X_mid = gen.sample(65536)
+        Q_mid = torch.from_numpy(gen.sample(512)).cuda()
+        cagra_checks(card, seed, res, X_mid, Q_mid, max_err, this_tree)
+        gen = Clustered(rng, 128, 4096)
+        X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        X_card = torch.from_numpy(X).cuda()
+        pq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024), res=res)
+        cg, build_s = timed_build(lambda: cagra.build(
+            X_card, cagra.CagraIndexParams(intermediate_graph_degree=32, graph_degree=16,
+                                           build_algo="ivf_pq"), res=res, pq_index=pq_index))
+        del pq_index
+        emit(card, phase="b4", metric="cagra_build_s", value=build_s,
+             empty_graph_slots=int((cg.graph < 0).sum()))
+        b4_main(card, cg, torch.from_numpy(Q).cuda(), 10, max_err, this_tree, phase="b4")
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -1390,23 +1617,7 @@ def main() -> int:
                       ksub=a["ksub"])
     index = ivf_pq.build(X_mid, ivf_pq.IvfPqIndexParams(n_lists=64, pq_bits=1), res=res)
     rabitq_checks(card, args.seed, index, Q_mid, max_err)
-    for deg in (16, 32):
-        cg = cagra.build(X_mid, cagra.CagraIndexParams(intermediate_graph_degree=2 * deg,
-                                                       graph_degree=deg, build_algo="ivf_pq"), res=res)
-        for table_dtype in ("float32", "bfloat16"):
-            for ip in (False, True):
-                for itopk, width in ((64, 1), (64, 4), (128, 8)):
-                    a = b4_args(cg, Q_mid, itopk, width, ip, table_dtype)
-                    rv, ri = run_b4(a, reference=True)
-                    kv, ki = run_b4(a)
-                    torch.cuda.synchronize()
-                    err = compare_beam(kv, ki, rv, ri)
-                    max_err["cagra_fused_search"] = max(max_err["cagra_fused_search"], err)
-                    emit(card, phase="kernel_vs_plain", kernel="cagra_fused_search", graph_degree=deg,
-                         metric="InnerProduct" if ip else "L2Expanded", table=table_dtype,
-                         itopk=itopk, width=width, iters=a["kw"]["iters"], max_abs_err=err,
-                         live_slots=float((ki >= 0).to(torch.float32).mean()))
-        del cg
+    cagra_checks(card, args.seed, res, X_mid, Q_mid, max_err)
     # B5: the fold, against its plain version on the card
     for rows in (32, 2560):
         for w in (10, 80, 256):
@@ -1662,20 +1873,9 @@ def main() -> int:
     emit(card, phase="cagra", metric="serve_launches", value=cagra_launches)
     if args.profile:
         profile_backlog(card, eng, "sift1m_cagra", Q, starts, sizes, k, "serve_cagra_backlog_trace.json")
-    # B4 at the serving path's shapes: one 128-row batch
-    a = b4_args(cg, Qt[:128], 128, 8, False, cp.fused_table_dtype, init_sample=cp.init_sample)
-    work = {}
-    rv, ri = run_b4(a, reference=True, work=work)
-    kv, ki = run_b4(a)
-    max_err["cagra_fused_search"] = max(max_err["cagra_fused_search"], compare_beam(kv, ki, rv, ri))
-    b4 = dict(ms=cuda_ms(lambda: run_b4(a), reps=20),
-              plain_ms=cuda_ms(lambda: run_b4(a, reference=True), reps=1))
-    b4["bound_ms"], b4["bound_by"] = b4_bound_ms(a, work)
-    full = 128 * a["kw"]["iters"] * 8 * cg.graph_degree
-    emit(card, phase="cagra", metric="cagra_fused_search_ms_serving_batch", value=b4["ms"],
-         bound_ms=b4["bound_ms"], bound_by=b4["bound_by"], plain_ms=b4["plain_ms"],
-         rows_scored=work["rows"], rows_at_most=full,
-         formula_bound_ms=bound_ms(3.0 * full * d, full * (d * 2 + 4)), iters=a["kw"]["iters"])
+    # B4 at the main path's shapes: the serving batch, batch 1 and 10, and
+    # a batch of the 10,000-query search
+    b4 = b4_main(card, cg, Qt, k, max_err)
 
     # ---- phase 7: sharded search over four virtual shards ------------------
     from raft_tpu_torch.parallel import (sharded_ivf_flat_search, sharded_ivf_pq_lists_search,
@@ -1873,6 +2073,8 @@ def main() -> int:
                      "bound_by": t["bound_by"], "library_ms": None})
         if name == "hop_merge":  # on one card B5's folds run inside B6's and B7's launches
             rows[-1]["folds_inside_rings"] = folds
+        if name == "cagra_fused_search":
+            rows[-1].update(per_step_us=t["per_step_us"], chain_floor_ms=t.get("chain_floor_ms"))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -43,6 +43,11 @@ enum RingCount { kSpins = 0, kWaits = 1 };
 // counters: candidates that passed the filter, 32-wide batches merged
 enum RqStage { kRqCodes = 0, kRqMma = 1, kRqFilter = 2, kRqRescore = 3, kRqMerge = 4, kRqBarrier = 5 };
 enum RqCount { kRqSurvivors = 0, kRqMerges = 1 };
+// B4's stages (pick: the parents; fetch: graph ids and table rows, their
+// wait included; score; merge: the union's order; dedup: the adjacent kill
+// and what the next pick reads) and counters: valid parents, rows scored
+enum CgStage { kCgPick = 0, kCgFetch = 1, kCgScore = 2, kCgMerge = 3, kCgDedup = 4, kCgBarrier = 5 };
+enum CgCount { kCgParents = 0, kCgRows = 1 };
 
 __device__ __forceinline__ long long* cta_record(long long* rec) {
   return rec + (long long)(blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z)) * RECORD;

@@ -495,9 +495,10 @@ def _epilogue(vals, idx, metric: DistanceType):
 
 def strided_seed_ids(size: int, sample: int, device=None) -> torch.Tensor:
     """``min(sample, size)`` distinct evenly spaced seed ids
-    ``floor(i * size / sample)``, int32 (computed in int64)."""
+    ``floor(i * size / sample)``, int32 (computed in int64 on ``device``,
+    so no host copy waits for the card)."""
     s = min(sample, size)
-    return torch.from_numpy(((np.arange(s, dtype=np.int64) * size) // s).astype(np.int32)).to(device)
+    return ((torch.arange(s, dtype=torch.int64, device=device) * size) // s).to(torch.int32)
 
 
 def plan_search_params(nq: int, k: int, size: int,
@@ -557,10 +558,26 @@ def _fused_table(index: CagraIndex, dtype) -> torch.Tensor:
     return cached[1]
 
 
-def _cagra_fused_impl(table, graph, dataset, sqnorms, queries, init_ids, *, k: int, itopk: int,
-                      width: int, iters: int, metric: DistanceType):
-    """The fused path: the xla path's seed beam (:func:`_seed_select`), the
-    beam loop of kernel B4, then the final unique merge and the metric
+def _fused_seeds(index: CagraIndex, sample: int):
+    """The strided seed ids of ``init_sample=sample``, their f32 rows and
+    their squared norms: made once on the index's device and cached on the
+    index per sample (a plain attribute, as the table is), so a search
+    neither copies ids from the host nor gathers the rows again."""
+    cache = getattr(index, "_fused_seed_cache", None)
+    if cache is None:
+        cache = index._fused_seed_cache = {}
+    if sample not in cache:
+        ids = strided_seed_ids(index.size, sample, index.device)
+        rows = ids.to(torch.int64)
+        cache[sample] = (ids, index.dataset[rows].to(torch.float32), index.sqnorms[rows])
+    return cache[sample]
+
+
+def _cagra_fused_impl(table, graph, seed_rows, seed_norms, queries, init_ids, *, k: int,
+                      itopk: int, width: int, iters: int, metric: DistanceType):
+    """The fused path: the xla path's seed beam (:func:`_seed_select`, over
+    the seeds ``init_ids``, their f32 rows and squared norms), the beam
+    loop of kernel B4, then the final unique merge and the metric
     epilogue. The merge also collapses the one duplicate class the kernel's
     adjacent kill cannot see: a seed re-scored by the kernel need not round
     as the seed product did."""
@@ -569,9 +586,8 @@ def _cagra_fused_impl(table, graph, dataset, sqnorms, queries, init_ids, *, k: i
     select_min = metric != DistanceType.InnerProduct
     worst = worst_value(torch.float32, select_min)
     q_sqnorm = torch.sum(qf * qf, dim=1)
-    seed = init_ids.to(torch.int64)
-    v0, i0 = _seed_select(qf, q_sqnorm, dataset[seed].to(torch.float32), sqnorms[seed], init_ids,
-                          itopk=itopk, select_min=select_min, worst=worst)
+    v0, i0 = _seed_select(qf, q_sqnorm, seed_rows, seed_norms, init_ids, itopk=itopk,
+                          select_min=select_min, worst=worst)
     # the kernel's beam is min-ordered with a finite worst: negate IP dots,
     # map empty slots, pack (id, visited = 0)
     kv0 = torch.where(i0 < 0, WORST, v0 if select_min else -v0)
@@ -637,9 +653,14 @@ def search(
         vpq_arrays = (v.vq_centers, v.vq_labels, v.pq_centers, v.codes)
         sqnorms = v.sqnorms
     dedup = {True: "sort", False: "none"}.get(params.dedup, params.dedup)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(params.seed))
-    strided = strided_seed_ids(index.size, params.init_sample, dev) if params.init_sample > 0 else None
+    gen = strided = None
+    if mode == "fused":  # fused_eligible: init_sample > 0
+        strided, seed_rows, seed_norms = _fused_seeds(index, params.init_sample)
+    elif params.init_sample > 0:
+        strided = strided_seed_ids(index.size, params.init_sample, dev)
+    else:  # random seeds, drawn per batch
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(params.seed))
 
     nq = queries.shape[0]
     out_v, out_i = [], []
@@ -655,7 +676,7 @@ def search(
                                      device=dev, dtype=torch.int32)
         if mode == "fused":
             v, i = _cagra_fused_impl(
-                table, index.graph, index.dataset, index.sqnorms, qc, init_ids, k=k, itopk=itopk,
+                table, index.graph, seed_rows, seed_norms, qc, init_ids, k=k, itopk=itopk,
                 width=width, iters=iters, metric=index.metric,
             )
         else:

@@ -159,8 +159,12 @@ def test_lane_tree_order():
 
 
 def test_shared_memory_bound():
-    # the operating point: 128 + 8 * 16 = 256 union entries, d = 128
-    assert tcs.smem_bytes(128, 8, 16, 128) == 8 * 256 + 4 * (128 + 4 * 128 + 2 * 128 + 8)
+    # the operating point: 128 + 8 * 16 = 256 union entries, d = 128: the
+    # union's and the pick's 32-bit keys, the query, beams, candidates, parents
+    least = 4 * (256 + 128) + 4 * (128 + 4 * 128 + 2 * 128 + 8)
+    assert tcs.smem_bytes(128, 8, 16, 128) == least
+    # every row of a step staged at bf16: 128 rows of 256 bytes, each padded
+    assert tcs.smem_bytes(128, 8, 16, 128, 2, 128, 1) == least + 128 * (256 + 2 * tcs.ROW_PAD)
     assert tcs.smem_bytes(8192, 8, 64, 128) > 232448
 
 
