@@ -1,7 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --phases paths,ring,b1,b3,rabitq,b4 [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -84,6 +84,20 @@ Phases, in order; any failure exits non-zero:
    rings launch no B5: its folds run inside B6's and B7's launches
    (``fused_ring_topk.folds``).
 
+8. the mutable index at full width (:func:`mutable_phase`): phase 3's
+   rows inserted into ``MutableIndex.open(ivf_flat, n_lists=1024)`` in
+   65,536-row chunks and compacted to generation 1 (equal to phase 3's
+   build), then churn (31,744 inserts, 10,000 deletes and 1,024 upserts of
+   main rows) filling the delta to 32,768 rows, 32 banks of B1: B1's delta
+   launch bit-equal to its plain version at k = 10 and 100, the fused
+   delta route against the exact one, no deleted id, the upserts found,
+   recall within 0.005 of generation 1's; served through
+   ``register_mutable`` while a writer thread inserts and the compactor
+   flips to generation 2 in the background (QPS, flips, compaction
+   seconds, B1's launches on the main and delta scans, the device busy
+   share of a backlog); a cold reopen with equal rows and answers; a
+   compaction equal to a fresh build at 65,536 rows.
+
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
 256, with ties, signed zeros, padding and ``inf``) against its plain
 version, and B6 ``fused_ring_topk`` and B7 ``fused_scan_ring_topk`` (on one
@@ -98,14 +112,15 @@ engine and of the gather merge into host and device time
 kernel's stage clock (``fused_ring_topk_split``).
 
 Each kernel's launch count is zeroed just before its path runs (phases
-3-7) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
+3-8) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
 adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
 IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 (:func:`run_phases`): ``paths`` times the IVF-Flat search paths per call
-(:func:`paths_ms`), ``ring`` phase 2's ring checks and lines, ``b3``
+(:func:`paths_ms`), ``serve`` phase 3's IVF-Flat serving QPS
+(:func:`serve_qps`), ``ring`` phase 2's ring checks and lines, ``b3``
 phase 2's B3 checks, ``rabitq`` phase 5, ``b1`` and ``b4`` phase 2's B1
 or B4 checks and then that kernel at the main path's shapes on the 1M
-index; with ``--tree`` they import
+index, ``mutable`` phase 8; with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
 one card, old / new / new / old, the lines an older kernel cannot give
@@ -298,9 +313,11 @@ def serve_both_ways(card, eng, index_id, Q, sizes, starts, k, n, gt, kernel, pha
     return total
 
 
-def profile_backlog(card, eng, index_id, Q, starts, sizes, k, trace: str, n_req: int = 64) -> None:
+def profile_backlog(card, eng, index_id, Q, starts, sizes, k, trace, n_req: int = 64,
+                    phase: str = "profile") -> float:
     """Device busy share and kernel time by name over a backlog of
-    ``n_req`` requests (torch.profiler); the trace goes to chiprun_out/."""
+    ``n_req`` requests (torch.profiler); the trace goes to chiprun_out/
+    unless ``trace`` is None. Returns the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -313,14 +330,16 @@ def profile_backlog(card, eng, index_id, Q, starts, sizes, k, trace: str, n_req:
         wall_us = (time.perf_counter() - t0) * 1e6
     for f in futs:
         f.result()
-    prof.export_chrome_trace(f"chiprun_out/{trace}")
+    if trace is not None:
+        prof.export_chrome_trace(f"chiprun_out/{trace}")
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    emit(card, phase="profile", index_id=index_id, metric="backlog_device_busy_share",
+    emit(card, phase=phase, index_id=index_id, metric="backlog_device_busy_share",
          value=busy_us / wall_us, wall_ms=wall_us / 1e3, requests=n_req,
          rows=int(sum(sizes[:n_req])),
          kernels_ms={e.key[:80]: [e.count, e.self_device_time_total / 1e3] for e in top})
+    return busy_us / wall_us
 
 
 def bound_ms(flops: float, bytes_: float, rate: float = H100_FP32_FLOPS) -> tuple:
@@ -1381,6 +1400,51 @@ def paths_ms(card: str, tree: str, seed: int, reps: int = 50) -> None:
          select_k_coarse=cuda_ms(lambda: select_k(coarse, 20, select_min=True), reps))
 
 
+def serve_qps(card: str, tree: str, seed: int, rounds: int = 3, n: int = 1_000_000,
+              nq: int = 10_000) -> None:
+    """QPS of phase 3's IVF-Flat serving on one tree: a 1,000,000 x 128
+    index (``n_lists=1024``, phase 3's data distribution from ``seed``)
+    registered at ``n_probes=20``, ``fused_qt=16``, 10,000 queries in
+    requests of 1-128 rows, served as one client once and as a backlog
+    ``rounds`` times (host clock, ending on the host's copy of the
+    results)."""
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.serve import ServingEngine
+
+    rng = np.random.default_rng(seed)
+    gen = Clustered(rng, 128, 4096)
+    X, Q = gen.sample(n), gen.sample(nq)
+    res = Resources(device="cuda", seed=seed)
+    index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024), res=res)
+    eng = ServingEngine(max_batch=128, max_wait_ms=2.0, queue_capacity=nq, res=res)
+    eng.register("sift1m", "ivf_flat", index,
+                 params=ivf_flat.IvfFlatSearchParams(n_probes=20, fused_qt=SERVE_QT))
+    eng.warmup("sift1m", 10)
+    sizes = []
+    while sum(sizes) < nq:
+        sizes.append(int(min(rng.integers(1, 129), nq - sum(sizes))))
+    starts = np.cumsum([0] + sizes[:-1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s, m in zip(starts, sizes):
+        fut = eng.submit("sift1m", Q[s : s + m], 10)
+        eng.step(force=True)
+        fut.result()
+    one_client = nq / (time.perf_counter() - t0)
+    backlog = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        futs = [eng.submit("sift1m", Q[s : s + m], 10) for s, m in zip(starts, sizes)]
+        eng.run_until_idle()
+        for f in futs:
+            f.result()
+        backlog.append(nq / (time.perf_counter() - t0))
+    emit(card, phase="serve", metric="serve_qps", tree=os.path.basename(os.path.abspath(tree)),
+         one_client=one_client, backlog=backlog, requests=len(sizes), n_probes=20,
+         fused_qt=SERVE_QT)
+
+
 def ring_checks(card: str, rng, max_err: dict) -> None:
     """B6 (tiles of at most k = 10 columns) and B7 (wider tiles) over
     virtual meshes of 2, 3, 4 and 8 shards of the card, 1, 37, 128 and 1,024
@@ -1427,21 +1491,332 @@ def ring_checks(card: str, rng, max_err: dict) -> None:
              **stage_split(rec, rt.STAGES, rt.COUNTS, slots=rt.STAGE_SLOTS))
 
 
+def delta_args(snap, queries):
+    """B1's inputs for a snapshot's delta scan, named as :func:`run_flat`
+    and :func:`flat_bound_ms` read them."""
+    from types import SimpleNamespace
+
+    from raft_tpu_torch.mutable import segments as seg
+
+    a = seg.delta_scan_inputs(snap.delta_bf, snap.delta_live, queries)
+    return SimpleNamespace(list_data=a.list_data, list_norms=a.list_norms,
+                           list_indices=a.list_indices, queries_sorted=a.queries,
+                           tile_probes=a.tile_probes, probe_valid=a.probe_valid)
+
+
+def served_mutable(eng, index_id, Q, sizes, k):
+    """Queue every request of ``sizes`` rows of ``Q``, drain, and return
+    the results and the seconds."""
+    starts = np.cumsum([0] + list(sizes[:-1]))
+    t0 = time.perf_counter()
+    futs = [eng.submit(index_id, Q[s : s + m], k) for s, m in zip(starts, sizes)]
+    eng.run_until_idle()
+    results = [f.result() for f in futs]
+    return results, time.perf_counter() - t0
+
+
+def mutable_phase(card, res, X, Q, gt_i, gen, k: int, seed: int, immutable=None) -> dict:
+    """Phase 8: the mutable index at full width (:func:`run_phases`'s
+    ``mutable`` part). ``X`` (1M x 128) goes through
+    ``MutableIndex.open(ivf_flat, n_lists=1024)`` in 65,536-row inserts and
+    ``compact()`` builds generation 1 (equal, field for field, to
+    ``immutable`` when given: phase 3's build over the same rows). Churn
+    (31,744 inserts, 10,000 deletes and 1,024 upserts of main rows) fills
+    the delta to 32,768 rows, 32 banks of B1. Checks, each raising: B1's
+    delta launch ``torch.equal`` to its plain version at k = 10 and 100;
+    the fused delta route against ``delta_mode="exact"`` on the 10,000
+    queries (ids equal at >= 0.999 of the slots, distances allclose); no
+    deleted id returned; each upserted vector first for itself at distance
+    ~0; recall@10 against exact kNN over ``live_rows()`` at most 0.005 below
+    generation 1's (the immutable index's) recall. Then served through
+    ``register_mutable`` (``fused_qt=16``, ``n_probes=20``,
+    ``CompactionPolicy(delta_rows=32_768)``): 10,000-query backlogs while a
+    writer thread inserts, until the compactor's background flip to
+    generation 2 and one backlog after it; sampled batches equal
+    ``snapshot().search`` at generations 1 and 2. Then a cold reopen must
+    give ``torch.equal`` live rows and search output, and at 65,536 rows a
+    compaction must equal a fresh build from the same seed, bit for bit.
+    Returns B1's serving launches and the phase's numbers."""
+    import shutil
+    import tempfile
+    import threading
+
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.mutable import CompactionPolicy, MutableIndex
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat
+    from raft_tpu_torch.ops import ivf_scan
+    from raft_tpu_torch.serve import ServingEngine
+    from raft_tpu_torch.stats.recall import neighborhood_recall
+
+    t_phase = time.perf_counter()
+    n, d = X.shape
+    nq = Q.shape[0]
+    Qt = torch.from_numpy(Q).cuda()
+    rng = np.random.default_rng([seed, 8])
+    ivf_fields = ("centers", "list_sizes", "list_indices", "list_data", "list_norms", "center_rank")
+    params = ivf_flat.IvfFlatIndexParams(n_lists=1024)
+    serve_params = ivf_flat.IvfFlatSearchParams(n_probes=20, fused_qt=SERVE_QT)
+    tmp = tempfile.mkdtemp(prefix="mutable_")
+    obs.registry().reset()
+    obs.enable()
+    try:
+        def open_index():
+            return MutableIndex.open(tmp, "ivf_flat", d, index_params=params,
+                                     search_params=serve_params, name="mutable", res=res)
+
+        mut = open_index()
+        t0 = time.perf_counter()
+        for s in range(0, n, 65536):
+            mut.insert(X[s : s + 65536])
+        insert_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mut.compact() != 1:
+            raise AssertionError("the first compaction did not publish generation 1")
+        torch.cuda.synchronize()
+        compact_s = time.perf_counter() - t0
+        same_as_phase3 = None
+        if immutable is not None:
+            same_as_phase3 = differing_fields(mut.main_index, immutable, ivf_fields)
+            if same_as_phase3:
+                raise AssertionError(f"generation 1 differs from phase 3's build in {same_as_phase3}")
+        emit(card, phase="mutable", metric="mutable_load", rows=n, insert_s=insert_s,
+             insert_chunk=65536, compact_s=compact_s, generation=mut.generation,
+             wal_bytes_before_compaction=n * (d * 4 + 8), fields_differing_from_phase3=same_as_phase3)
+        _, imm_ids = ivf_flat.search(mut.main_index, Qt, k, serve_params)
+        imm_recall = neighborhood_recall(imm_ids, gt_i)
+
+        # churn: the delta fills to 32,768 rows, the fused route's largest
+        picks = rng.choice(n, 11_024, replace=False)
+        del_ids, up_ids = picks[:10_000], picks[10_000:]
+        new_rows = gen.sample(31_744)
+        up_rows = gen.sample(1_024)
+        t0 = time.perf_counter()
+        for s in range(0, len(new_rows), 1024):
+            mut.insert(new_rows[s : s + 1024])
+        mut.delete(del_ids)
+        mut.upsert(up_ids, up_rows)
+        churn_s = time.perf_counter() - t0
+        snap = mut.snapshot()
+        if int(snap.delta_bf.size) != 32_768 or mut.delta_rows != 32_768:
+            raise AssertionError(f"delta holds {mut.delta_rows} rows, {snap.delta_bf.size} padded")
+
+        # 1. B1's delta launch against its plain version, bit for bit
+        da = delta_args(snap, Qt)
+        b1_delta = {}
+        for kk in (10, 100):
+            kv, ks = run_flat(da, kk, snap.metric)
+            rv, rs = run_flat(da, kk, snap.metric, reference=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(kv, rv) and torch.equal(ks, rs)):
+                raise AssertionError(f"B1's delta launch at k={kk} is not its plain version's bits")
+            b1_delta[kk] = dict(ms=cuda_ms(lambda: run_flat(da, kk, snap.metric), reps=10),
+                                plain_ms=cuda_ms(lambda: run_flat(da, kk, snap.metric,
+                                                                  reference=True), reps=1),
+                                **{x: v for x, v in flat_bound_ms(da, kk).items()
+                                   if x != "bound_terms_ms"})
+        emit(card, phase="mutable", metric="fused_list_topk_delta", banks=int(da.list_data.shape[0]),
+             bank_rows=int(da.list_data.shape[1]), queries=nq, qt=128, torch_equal=True,
+             by_k={str(kk): v for kk, v in b1_delta.items()})
+
+        # 2. the fused route against the exact one
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fu_d, fu_i = snap.search(Qt, k)
+        fused_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ex_d, ex_i = dataclasses.replace(snap, delta_mode="exact").search(Qt, k)
+        exact_s = time.perf_counter() - t0
+        share = float((fu_i == ex_i).mean())
+        gap = float(np.abs(fu_d - ex_d).max())
+        emit(card, phase="mutable", metric="delta_fused_vs_exact", ids_equal_share=share,
+             max_distance_gap=gap, queries=nq, fused_search_s=fused_s, exact_search_s=exact_s)
+        if share < 0.999 or not np.allclose(fu_d, ex_d, rtol=1e-5, atol=1e-3):
+            raise AssertionError(f"fused and exact delta routes: ids equal at {share}, "
+                                 f"largest distance gap {gap}")
+
+        # 3. deletes never surface; upserts are found at their own place
+        if np.isin(fu_i, del_ids).any():
+            raise AssertionError("a deleted id was returned")
+        ud, ui = snap.search(torch.from_numpy(up_rows).cuda(), k)
+        scale = np.maximum(1.0, (up_rows.astype(np.float64) ** 2).sum(axis=1))
+        self_err = float((ud[:, 0] / scale).max())
+        emit(card, phase="mutable", metric="upserts_found", upserts=len(up_ids),
+             first_is_itself=float((ui[:, 0] == up_ids).mean()), max_self_distance=float(ud[:, 0].max()),
+             max_self_distance_over_norm2=self_err)
+        if not (ui[:, 0] == up_ids).all() or self_err > 1e-5:
+            raise AssertionError(f"an upserted vector is not first for itself at distance ~0 "
+                                 f"({self_err} of its squared norm)")
+
+        # 4. recall against exact kNN over the live rows
+        live_ids, live_vecs = mut.live_rows()
+        _, pos = brute_force.knn(live_vecs, Q, k, metric="sqeuclidean", res=res)
+        gt_live = torch.from_numpy(live_ids[pos.cpu().numpy()])
+        mut_recall = neighborhood_recall(torch.from_numpy(fu_i), gt_live)
+        emit(card, phase="mutable", metric="mutable_recall@10", value=mut_recall,
+             immutable_recall=imm_recall, live_rows=len(live_ids), delta_rows=mut.delta_rows,
+             tombstones=10_000 + 1_024, churn_s=churn_s)
+        if mut_recall < imm_recall - 0.005:
+            raise AssertionError(f"mutable recall {mut_recall} < immutable {imm_recall} - 0.005")
+
+        # served: a backlog at a time while a writer inserts, across the flip
+        eng = ServingEngine(max_batch=128, max_wait_ms=2.0, queue_capacity=nq, res=res)
+        eng.register_mutable("mutable", mut, params=serve_params,
+                             policy=CompactionPolicy(delta_rows=32_768))
+        comp = eng._reg("mutable").compactor
+        sample = [Q[:128], Q[128:256]]
+
+        def check_sample(expect_gen):
+            futs = [eng.submit("mutable", q, k) for q in sample]
+            eng.run_until_idle()
+            snap_now = mut.snapshot()
+            for q, f in zip(sample, futs):
+                r = f.result()
+                want = snap_now.search(torch.from_numpy(q).cuda(), k)
+                if r.generation != expect_gen or snap_now.generation != expect_gen or not (
+                        np.array_equal(r.indices, want[1]) and np.array_equal(r.distances, want[0])):
+                    raise AssertionError(f"a served batch at generation {r.generation} is not "
+                                         f"snapshot().search at generation {expect_gen}")
+
+        check_sample(1)
+        sizes = []
+        while sum(sizes) < nq:
+            sizes.append(int(min(rng.integers(1, 129), nq - sum(sizes))))
+        # 800 rows a second, at most 16,384: the delta after the flip (the
+        # rows written since the pin) stays inside B1's window
+        writer_rows = gen.sample(16_384)
+        stop = threading.Event()
+        written = [0]
+
+        def writer():
+            while not stop.is_set() and written[0] < len(writer_rows):
+                mut.insert(writer_rows[written[0] : written[0] + 16])
+                written[0] += 16
+                time.sleep(0.02)
+
+        wt = threading.Thread(target=writer, name="mutable-writer")
+        ivf_scan.fused_list_topk.launches = 0
+        scans0 = dict(obs.registry().as_dict()["counters"])
+        compact_key = 'mutable.compact.duration_ms{index="mutable"}'
+        compact_ms0 = obs.registry().as_dict()["histograms"][compact_key]["sum"]
+        wt.start()
+        generations, qps, rounds, served_s = set(), [], 0, 0.0
+        after_flip = False
+        deadline = time.monotonic() + 300.0
+        try:
+            while not after_flip:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the compactor did not flip within 300 s of serving")
+                began_after = comp.completed >= 1
+                results, secs = served_mutable(eng, "mutable", Q, sizes, k)
+                rounds += 1
+                served_s += secs
+                qps.append(nq / secs)
+                generations |= {r.generation for r in results}
+                ids = np.concatenate([r.indices for r in results])
+                if (ids < 0).any() or np.isin(ids, del_ids).any():
+                    raise AssertionError("a served result holds an empty slot or a deleted id")
+                after_flip = began_after
+        finally:
+            stop.set()
+            wt.join()
+        launches = ivf_scan.fused_list_topk.launches
+        counters = obs.registry().as_dict()["counters"]
+        delta_scans = {mode: counters.get(f'mutable.delta.scans{{mode="{mode}"}}', 0.0)
+                       - scans0.get(f'mutable.delta.scans{{mode="{mode}"}}', 0.0)
+                       for mode in ("fused", "exact")}
+        flips = counters.get('serve.generation_flips{index_id="mutable"}', 0.0)
+        comp_ms = obs.registry().as_dict()["histograms"][compact_key]["sum"] - compact_ms0
+        if not comp.wait_idle(timeout_s=120.0) or comp.completed != 1 or comp.failed:
+            raise AssertionError(f"compactor: {comp.completed} completed, {comp.failed} failed "
+                                 f"({comp.last_error!r})")
+        if not generations <= {1, 2} or 2 not in generations or mut.generation != 2 or flips != 1:
+            raise AssertionError(f"served generations {sorted(generations)}, {flips} flips, "
+                                 f"index at generation {mut.generation}")
+        if launches <= 0 or delta_scans["fused"] <= 0:
+            raise AssertionError(f"B1 launched {launches} times, {delta_scans['fused']} of them "
+                                 "for the delta")
+        check_sample(2)
+        busy = profile_backlog(card, eng, "mutable", Q, np.cumsum([0] + sizes[:-1]), sizes, k,
+                               None, n_req=len(sizes), phase="mutable")
+        serve = dict(qps=nq * rounds / served_s, qps_per_round=qps, rounds=rounds,
+                     generation_flips=flips, generations=sorted(generations),
+                     compaction_s=comp_ms / 1e3,
+                     b1_launches=launches, b1_launches_delta=delta_scans["fused"],
+                     b1_launches_main=launches - delta_scans["fused"],
+                     delta_scans_exact=delta_scans["exact"], writer_rows=written[0],
+                     busy_share=busy)
+        emit(card, phase="mutable", metric="mutable_serve", max_batch=128, fused_qt=SERVE_QT,
+             n_probes=20, **serve)
+        eng.shutdown()
+
+        # durability: close, reopen cold, the same rows and answers
+        ids0, vecs0 = mut.live_rows()
+        d0, i0 = mut.search(Qt[:1024], k)
+        mut.close()
+        del mut, snap, eng
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mut = open_index()
+        torch.cuda.synchronize()
+        reopen_s = time.perf_counter() - t0
+        ids1, vecs1 = mut.live_rows()
+        d1, i1 = mut.search(Qt[:1024], k)
+        equal = all(torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+                    for a, b in ((ids0, ids1), (vecs0, vecs1), (d0, d1), (i0, i1)))
+        emit(card, phase="mutable", metric="mutable_reopen", reopen_s=reopen_s,
+             live_rows=len(ids1), generation=mut.generation, equal=equal)
+        if not equal or mut.generation != 2:
+            raise AssertionError("the cold reopen does not give the live rows and answers of before")
+        mut.close()
+        del mut
+
+        # a compaction equals a fresh build over the same rows, at 65,536
+        small = ivf_flat.IvfFlatIndexParams(n_lists=256)
+        m = MutableIndex("ivf_flat", d, index_params=small, search_params=serve_params, res=res)
+        ids = m.insert(X[:65536])
+        m.compact()
+        m.insert(gen.sample(2048))
+        m.delete(ids[::100])
+        m.upsert(ids[1::97][:64], gen.sample(64))
+        m.compact()
+        live_ids, live_vecs = m.live_rows()
+        fresh = MutableIndex("ivf_flat", d, index_params=small, search_params=serve_params, res=res)
+        fresh.insert(live_vecs, ids=live_ids)
+        fresh.compact()
+        diff = differing_fields(m.main_index, fresh.main_index, ivf_fields)
+        a, b = m.search(Qt[:1024], k), fresh.search(Qt[:1024], k)
+        same = np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        emit(card, phase="mutable", metric="mutable_fresh_rebuild", rows=len(live_ids),
+             fields_differing=diff, search_equal=same)
+        if diff or not same:
+            raise AssertionError(f"compaction differs from a fresh build: fields {diff}, "
+                                 f"search equal {same}")
+    finally:
+        obs.disable()
+        obs.registry().reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(card, phase="mutable", metric="mutable_phase_s", value=time.perf_counter() - t_phase)
+    return dict(launches=serve["b1_launches"], delta=b1_delta[k], serve=serve)
+
+
 #: the parts ``--phases`` runs alone
-PHASE_PARTS = ("paths", "ring", "b1", "b3", "rabitq", "b4")
+PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
     """Parts of the run alone (``--phases``), on the data the whole run
     makes from ``seed``, in this order: ``paths`` (:func:`paths_ms`),
+    ``serve`` (:func:`serve_qps`),
     ``ring`` (phase 2's ring checks and lines, :func:`ring_checks`), ``b3``
     (phase 2's B3 checks, :func:`rabitq_checks`) and ``rabitq`` (phase 5,
     :func:`rabitq_phase`, on the 1M set and its exact neighbours); ``b1``
     runs first: phase 2's B1 checks (:func:`flat_checks`), then B1 at the
     main path's two shapes on the 1M IVF-Flat index (:func:`b1_main`);
-    ``b4`` last: phase 2's B4 checks (:func:`cagra_checks`), then the 1M
+    ``b4``: phase 2's B4 checks (:func:`cagra_checks`), then the 1M
     CAGRA index built as phase 6 builds it and B4 and ``cagra.search`` at
-    the main path's shapes (:func:`b4_main`). Each builds the kernels it
+    the main path's shapes (:func:`b4_main`); ``mutable`` last: phase 8
+    (:func:`mutable_phase`) on phase 3's data. Each builds the kernels it
     launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
@@ -1452,6 +1827,8 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
 
     if "paths" in parts:
         paths_ms(card, tree, seed)
+    if "serve" in parts:
+        serve_qps(card, tree, seed)
     max_err = {}
     if "b1" in parts:
         _, build_s, log = ivf_scan.build_kernel(True)
@@ -1522,6 +1899,18 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
         emit(card, phase="b4", metric="cagra_build_s", value=build_s,
              empty_graph_slots=int((cg.graph < 0).sum()))
         b4_main(card, cg, torch.from_numpy(Q).cuda(), 10, max_err, this_tree, phase="b4")
+    if "mutable" in parts:
+        _, build_s, log = ivf_scan.build_kernel(True)
+        emit(card, phase="build", kernel="fused_list_topk", build_s=build_s,
+             ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
+        res = Resources(device="cuda", seed=seed)
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
+        gen = Clustered(rng, 128, 4096)
+        X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
+        mutable_phase(card, res, X, Q, gt_i, gen, 10, seed)
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -2053,6 +2442,9 @@ def main() -> int:
                              f"launched B5 {phase7['hop_merge']} times (expected > 0 and 0)")
     emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
+    # ---- phase 8: the mutable index, served across a background flip -------
+    mutable = mutable_phase(card, res, X, Q, gt_i, gen, k, args.seed, immutable=index)
+
     rows = []
     for name, src, line, launches, t in (
             ("fused_list_topk", "ivf_scan.cu", "raft_tpu/ops/pallas/ivf_scan.py:321", flat_launches, b1),
@@ -2071,6 +2463,9 @@ def main() -> int:
                      "replaces": line, "launches": launches, "max_abs_err": max_err[name],
                      "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                      "bound_by": t["bound_by"], "library_ms": None})
+        if name == "fused_list_topk":  # phase 8's served run: main and delta scans
+            rows[-1].update(launches_mutable=mutable["launches"],
+                            launches_mutable_delta=mutable["serve"]["b1_launches_delta"])
         if name == "hop_merge":  # on one card B5's folds run inside B6's and B7's launches
             rows[-1]["folds_inside_rings"] = folds
         if name == "cagra_fused_search":

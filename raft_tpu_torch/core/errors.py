@@ -14,6 +14,21 @@ class LogicError(RaftError):
     """Analog of ``raft::logic_error`` raised by ``RAFT_EXPECTS``."""
 
 
+class ShardFailure(RaftError):
+    """One shard of a distributed operation failed (lost device, failed
+    collective participant)."""
+
+    def __init__(self, msg: str = "shard failure", shard: int = -1):
+        super().__init__(msg)
+        self.shard = shard
+
+
+class KernelFailure(RaftError):
+    """A hand-written CUDA kernel failed to build, load or launch
+    (:func:`raft_tpu_torch.ops.guard.kernel_guard`). The port raises it and
+    never falls back to another path."""
+
+
 class CorruptIndexError(RaftError):
     """A serialized index snapshot failed its integrity check (bad CRC,
     truncated payload). Raised by
@@ -42,6 +57,22 @@ class CorruptIndexError(RaftError):
         self.offset = offset
         self.expected_crc = expected_crc
         self.actual_crc = actual_crc
+
+
+class HostFetchError(RaftError):
+    """The host-tier vector fetch behind a tiered search failed after
+    exhausting its retries. Carries the batch shape so an operator can
+    correlate with the fetch metrics and the ``host.fetch`` fault seam."""
+
+    def __init__(self, msg: str, *, rows: int | None = None, attempts: int | None = None):
+        detail = []
+        if rows is not None:
+            detail.append(f"rows={rows}")
+        if attempts is not None:
+            detail.append(f"attempts={attempts}")
+        super().__init__(f"{msg} [{', '.join(detail)}]" if detail else msg)
+        self.rows = rows
+        self.attempts = attempts
 
 
 def expects(cond: bool, msg: str, *args) -> None:

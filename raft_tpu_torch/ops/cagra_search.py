@@ -46,6 +46,7 @@ import torch
 
 from raft_tpu_torch.core.errors import LogicError, RaftError, expects
 from raft_tpu_torch.ops.cuda_build import build_library
+from raft_tpu_torch.ops.guard import check_cuda
 from raft_tpu_torch.ops.pq_scan import SMEM_LIMIT_BYTES
 from raft_tpu_torch.utils.math import cdiv, next_pow2, round_up
 
@@ -468,8 +469,7 @@ def _card_plan(lib, dev, itopk: int, width: int, deg: int, d: int, bf16: bool, n
         if at not in _CTAS:
             out = ctypes.c_int(0)
             err = lib.cagra_search_ctas_per_sm(int(bf16), int(direct), smem, ctypes.byref(out))
-            if err != 0:
-                raise RaftError(f"cagra_search occupancy query failed (cudaError {err})")
+            check_cuda(err, "cagra_search occupancy query")
             _CTAS[at] = out.value
         return _CTAS[at]
 
@@ -517,7 +517,6 @@ def _launch(table, graph, queries, init_v, init_idf, *, itopk: int, width: int, 
         out_v.data_ptr(), out_idf.data_ptr(), nq, d, deg, itopk, width, iters, int(ip),
         plan.group_rows, plan.buffers, int(plan.bitonic), rec.data_ptr() if record else None, stream,
     )
-    if err != 0:
-        raise RaftError(f"cagra_search kernel launch failed (cudaError {err})")
+    check_cuda(err, "cagra_search kernel launch")
     cagra_fused_search.last_plan = plan
     return out_v, out_idf, rec

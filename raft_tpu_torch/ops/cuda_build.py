@@ -6,8 +6,10 @@ arch=compute_90a,code=sm_90a`` into a shared library with a plain C
 interface, ``raft_tpu_torch/_build/lib<name>_<digest>.so``, at its first
 use. The digest covers the source and every ``csrc/*.cuh`` it may
 include, so an edited kernel gets a new library. Different sources build
-in parallel (one lock per source); a source already loaded in this
-process is returned at once.
+in parallel (one lock per source, held across threads); a source
+already loaded in this process is returned at once. A build or load that
+fails raises :class:`~raft_tpu_torch.core.errors.KernelFailure`
+(:mod:`raft_tpu_torch.ops.guard`).
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ import threading
 import time
 from typing import Dict, Sequence, Tuple
 
-from raft_tpu_torch.core.errors import RaftError
+from raft_tpu_torch.core.errors import KernelFailure
+from raft_tpu_torch.ops.guard import kernel_guard
 
 _PKG = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 CSRC_DIR = os.path.normpath(os.path.join(_PKG, "csrc"))
@@ -34,7 +37,7 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RaftError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+        raise KernelFailure("nvcc not found: the CUDA toolkit is needed to build the kernels")
     return path
 
 
@@ -71,23 +74,24 @@ def build_library(
         so = os.path.join(BUILD_DIR, f"lib{stem}_{_digest(src)}.so")
         t0 = time.perf_counter()
         log = ""
-        if not os.path.exists(so):
-            tmp = f"{so}.tmp{os.getpid()}"
-            cmd = [
-                _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
-            ]
-            if verbose:
-                cmd.insert(1, "-Xptxas=-v")
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RaftError(f"nvcc failed to build {source}:\n{log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        for name, argtypes in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+        with kernel_guard(f"build {source}"):
+            if not os.path.exists(so):
+                tmp = f"{so}.tmp{os.getpid()}"
+                cmd = [
+                    _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
+                ]
+                if verbose:
+                    cmd.insert(1, "-Xptxas=-v")
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                log = proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise KernelFailure(f"nvcc failed to build {source}:\n{log}")
+                os.replace(tmp, so)
+            lib = ctypes.CDLL(so)
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
         _loaded[source] = lib
         return lib, time.perf_counter() - t0, log

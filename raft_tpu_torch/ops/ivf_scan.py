@@ -48,6 +48,7 @@ from raft_tpu_torch.core.errors import RaftError, expects
 from raft_tpu_torch.ops.cuda_build import build_library
 from raft_tpu_torch.ops.distance import SUPPORTED, DistanceType
 from raft_tpu_torch.ops.fused_1nn import normalize_rows
+from raft_tpu_torch.ops.guard import check_cuda
 from raft_tpu_torch.ops.select_k import select_k
 from raft_tpu_torch.utils.math import cdiv, round_up
 
@@ -735,8 +736,7 @@ def _launch(list_data, list_norms, list_indices, queries_sorted, tile_probes, pr
         n_split, n_qt, gm, d, qt, G, work.shape[1], k, _METRIC_CODE[metric],
         plan.queries, int(plan.qglobal), plan.staged, bound.kappa, bound.eps, stream,
     )
-    if err != 0:
-        raise RaftError(f"ivf_scan kernel launch failed (cudaError {err})")
+    check_cuda(err, "ivf_scan kernel launch")
     fused_list_topk.launches += 1
     fused_list_topk.last_grid = (q_groups, n_groups, n_split)
     return out_v, out_s, rec

@@ -50,6 +50,7 @@ import torch
 from raft_tpu_torch.core.errors import RaftError, expects
 from raft_tpu_torch.ops.cuda_build import build_library
 from raft_tpu_torch.ops.distance import DistanceType
+from raft_tpu_torch.ops.guard import check_cuda
 from raft_tpu_torch.ops.ivf_scan import (
     MAX_K,
     MAX_SPLIT,
@@ -442,8 +443,7 @@ def _launch(codes, ln, w, q_rot, centers_rot, tile_probes, probe_valid, *, k: in
         0 if metric != DistanceType.InnerProduct else 1, _MODE_CODE[code_mode], ksub, qb,
         stream,
     )
-    if err != 0:
-        raise RaftError(f"pq_scan kernel launch failed (cudaError {err})")
+    check_cuda(err, "pq_scan kernel launch")
     fused_pq_topk.launches += 1
     return out_v, out_s, rec
 

@@ -45,6 +45,7 @@ import torch
 from raft_tpu_torch.core.errors import RaftError, expects
 from raft_tpu_torch.ops.cuda_build import build_library
 from raft_tpu_torch.ops.distance import DistanceType
+from raft_tpu_torch.ops.guard import check_cuda
 from raft_tpu_torch.ops.ivf_scan import (
     CTA_RESERVED_BYTES,
     MAX_K,
@@ -535,8 +536,7 @@ def _launch(codes, ln, corr, q_rot, centers_rot, tile_probes, probe_valid, *, k:
         0 if metric != DistanceType.InnerProduct else 1, plan.queries, plan.rows,
         plan.mode, stream,
     )
-    if err != 0:
-        raise RaftError(f"rabitq_scan kernel launch failed (cudaError {err})")
+    check_cuda(err, "rabitq_scan kernel launch")
     fused_rabitq_topk.launches += 1
     fused_rabitq_topk.last_grid = (groups, n_qt, n_split)
     return out_v, out_s, rec

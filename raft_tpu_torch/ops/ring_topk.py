@@ -59,6 +59,7 @@ import torch
 
 from raft_tpu_torch.core.errors import RaftError, expects
 from raft_tpu_torch.ops.cuda_build import build_library
+from raft_tpu_torch.ops.guard import check_cuda
 from raft_tpu_torch.parallel import comms
 from raft_tpu_torch.parallel.wire_model import (
     AG_ENTRY_BYTES,
@@ -509,8 +510,7 @@ def _launch_fold(lib, a, b, out, rows: int, w: int, key_sign: int) -> None:
     four lane pointers each (a null key pointer: key = ``key_sign * val``).
     Counts in ``hop_merge.launches``."""
     err = lib.ring_fold(*a, *b, *out, rows, w, key_sign, _stream())
-    if err != 0:
-        raise RaftError(f"ring_fold kernel launch failed (cudaError {err})")
+    check_cuda(err, "ring_fold kernel launch")
     hop_merge.launches += 1
 
 
@@ -551,8 +551,7 @@ def _stage(lib, v, i, rank: int, n: int, B: int, w: int, select_min: bool) -> to
     state = torch.empty((n, _RS_LANES, B, w), dtype=torch.int32, device=v.device)
     err = lib.ring_stage(_ptr(v), _ptr(i), nq, kc, rank, n * B, B, w, int(select_min),
                          _ptr(state), _stream())
-    if err != 0:
-        raise RaftError(f"ring_stage kernel launch failed (cudaError {err})")
+    check_cuda(err, "ring_stage kernel launch")
     return state
 
 
@@ -675,8 +674,7 @@ def _onecard_capacity(lib, device: int, n: int, w: int, warps: int, prof: bool) 
                 "ring: the kernel's shared memory is not the wrapper's count")
         ctas = ctypes.c_int(0)
         err = lib.ring_onecard_capacity(device, n, w, warps, int(prof), ctypes.byref(ctas))
-        if err != 0:
-            raise RaftError(f"ring_onecard occupancy query failed (cudaError {err})")
+        check_cuda(err, "ring_onecard occupancy query")
         _capacity[key] = ctas.value
     return _capacity[key]
 
@@ -725,8 +723,7 @@ def _run_onecard(mesh, vs, is_, k: int, select_min: bool, stages: bool = False):
                                out_i.data_ptr(), ws.recv.data_ptr(), ws.flags.data_ptr(), B, ws.Bs,
                                G, ws.Gs, grid_x, warps, epoch, rec.data_ptr() if stages else None,
                                dev.index, streams, len(order))
-        if err != 0:
-            raise RaftError(f"ring_onecard kernel launch failed (cudaError {err})")
+        check_cuda(err, "ring_onecard kernel launch")
         if n > 1:
             per_rank = (n - 1) * B * k * (RS_ENTRY_BYTES + AG_ENTRY_BYTES)
             stats = dict(per_rank=per_rank, per_query=per_rank / nq,

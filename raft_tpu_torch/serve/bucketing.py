@@ -89,6 +89,11 @@ class ProgramKey:
     bucket: int
     k: int
     params: Tuple = ()
+    #: mutable-index generation the program serves; 0 for immutable
+    #: registrations. Bumping it on compaction retires stale programs
+    #: through the LRU and bounds distinct programs to generations x
+    #: buckets per configuration.
+    generation: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

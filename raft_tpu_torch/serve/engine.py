@@ -11,12 +11,16 @@ engine's device, un-padded, and every request's future completes with a
 :class:`ServeResult`. The engine is synchronous: :meth:`~ServingEngine.step`
 processes at most one micro-batch on the caller's thread.
 
-It serves ``brute_force``, ``ivf_flat``, ``ivf_pq`` and ``cagra`` indexes, and
+It serves ``brute_force``, ``ivf_flat``, ``ivf_pq`` and ``cagra`` indexes,
 lists-sharded ``sharded_ivf_flat`` and ``sharded_ivf_pq_lists`` indexes over
-a :class:`~raft_tpu_torch.parallel.Mesh` (every shard healthy, coverage 1.0).
-The JAX engine's observability, planner, robustness (health probes,
-degraded coverage), tiering, mutable-index and replica hooks are not
-ported yet.
+a :class:`~raft_tpu_torch.parallel.Mesh` (every shard healthy, coverage 1.0),
+and :class:`~raft_tpu_torch.mutable.MutableIndex` registrations
+(:meth:`~ServingEngine.register_mutable`): each micro-batch runs against one
+snapshot, the generation joins the program key and the result, and
+:meth:`~ServingEngine.step` ticks the registrations' background compactors.
+The ``serve.*`` counters and the ``serve.dispatch`` span and fault seam are
+the JAX engine's. Its planner, health probes and degraded coverage, tiering,
+SLO, request traces and replica hooks are not ported yet.
 """
 from __future__ import annotations
 
@@ -27,8 +31,10 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.core.resources import Resources, ensure_resources
+from raft_tpu_torch.robust import faults
 from raft_tpu_torch.serve.batcher import MicroBatcher, Request, ServeFuture
 from raft_tpu_torch.serve.bucketing import (
     ProgramCache,
@@ -57,6 +63,9 @@ class ServeResult:
     latency_ms: float = 0.0
     bucket: int = 0
     batch_rows: int = 0
+    #: mutable-index generation the answer was computed against (0 for
+    #: immutable registrations)
+    generation: int = 0
 
     def __iter__(self):  # unpack like a plain (distances, indices)
         return iter((self.distances, self.indices))
@@ -74,6 +83,12 @@ class _Registration:
     axis: str = "data"
     merge_mode: str = "auto"
     search_kwargs: Dict[str, object] = dataclasses.field(default_factory=dict)
+    #: background compactor of a mutable registration (None when
+    #: auto-compaction is not armed)
+    compactor: object = None
+    #: generation of the last dispatched batch (-1 before the first);
+    #: crossing a flip bumps the ``serve.generation_flips`` counter
+    last_generation: int = -1
 
 
 class ServingEngine:
@@ -87,12 +102,16 @@ class ServingEngine:
     """
 
     def __init__(self, max_batch: int = 64, max_wait_ms: float = 2.0,
-                 queue_capacity: int = 1024, res: Optional[Resources] = None):
+                 queue_capacity: int = 1024, res: Optional[Resources] = None,
+                 maintenance_interval_ms: float = 10.0):
         self.max_batch = int(max_batch)
         self.res = ensure_resources(res)
         self.batcher = MicroBatcher(max_batch=max_batch, max_wait_ms=max_wait_ms,
                                     capacity=queue_capacity)
         self.cache = ProgramCache()
+        #: floor between maintenance ticks driven from :meth:`step`
+        self.maintenance_interval_ms = float(maintenance_interval_ms)
+        self._last_maint = -float("inf")
         self._indexes: Dict[str, _Registration] = {}
 
     # -- registration ------------------------------------------------------
@@ -117,6 +136,40 @@ class ServingEngine:
             mode=mode if mode is not None else _DEFAULT_MODES[algo],
             dataset=dataset, mesh=mesh, axis=axis, merge_mode=merge_mode,
             search_kwargs=dict(search_kwargs),
+        )
+
+    def register_mutable(self, index_id: str, mutable, *, params=None, policy=None,
+                         compactor=None, **search_kwargs) -> None:
+        """Register a :class:`raft_tpu_torch.mutable.MutableIndex`.
+
+        Each micro-batch is dispatched against one immutable
+        :meth:`~raft_tpu_torch.mutable.MutableIndex.snapshot` taken at
+        dispatch time, so concurrent insert/delete/upsert (and
+        compaction's generation flips) are atomic with respect to
+        serving — a batch sees the whole mutation or none of it. The
+        snapshot's generation joins the :class:`ProgramKey`.
+
+        ``policy`` (a :class:`raft_tpu_torch.mutable.CompactionPolicy`)
+        arms auto-compaction: the engine starts a background
+        :class:`~raft_tpu_torch.mutable.Compactor` for the index and
+        drives its watchdog/trigger tick from :meth:`step`, so a churning
+        index rebuilds itself off-thread while this engine keeps serving
+        snapshots. Pass a pre-built ``compactor`` instead to control retry
+        policy, seed, or resources; :meth:`shutdown` stops engine-owned
+        workers either way.
+        """
+        old = self._indexes.get(index_id)
+        if old is not None and old.compactor is not None:
+            old.compactor.stop()
+        if compactor is None and policy is not None:
+            from raft_tpu_torch.mutable.maintenance import Compactor
+
+            compactor = Compactor(mutable, policy=policy, name=index_id)
+        if compactor is not None:
+            compactor.start()
+        self._indexes[index_id] = _Registration(
+            index_id=index_id, algo="mutable", index=mutable, params=params,
+            mode="snapshot", search_kwargs=dict(search_kwargs), compactor=compactor,
         )
 
     def registered(self) -> List[str]:
@@ -159,13 +212,21 @@ class ServingEngine:
 
     def step(self, force: bool = False) -> int:
         """Process at most one micro-batch; returns requests completed
-        (deadline rejections included)."""
+        (deadline rejections included). At most every
+        ``maintenance_interval_ms`` it first runs :meth:`maintenance_tick`."""
         now = self.batcher.now()
+        if now - self._last_maint >= self.maintenance_interval_ms / 1e3:
+            self._last_maint = now
+            self.maintenance_tick()
         if not self.batcher.ready(now) and not (force and self.batcher.depth_requests()):
             return 0
         batch, expired = self.batcher.next_batch(now)
+        for r in expired:
+            obs.inc("serve.rejections", reason="deadline_expired", index_id=r.group[0])
         if batch:
             self._dispatch(batch, now)
+        if obs.is_enabled():
+            obs.set_gauge("serve.queue_depth", self.batcher.depth_rows())
         return len(expired) + len(batch)
 
     def run_until_idle(self, max_steps: int = 1_000_000) -> int:
@@ -180,19 +241,41 @@ class ServingEngine:
     def queue_depth(self) -> int:
         return self.batcher.depth_rows()
 
+    # -- maintenance -------------------------------------------------------
+
+    def maintenance_tick(self) -> None:
+        """One watchdog + auto-compaction pass over every registration
+        that carries a :class:`~raft_tpu_torch.mutable.Compactor`. Driven
+        from :meth:`step` (rate-limited by ``maintenance_interval_ms``);
+        callable directly by deployments with their own schedulers. The
+        JAX engine's tick also re-plans registrations and samples its
+        flight recorder; the port has neither yet."""
+        for reg in list(self._indexes.values()):
+            if reg.compactor is not None:
+                reg.compactor.tick()
+
+    def shutdown(self, wait: bool = True) -> None:
+        """Stop every engine-owned background compactor. Queued requests
+        stay queued — this only halts maintenance threads."""
+        for reg in self._indexes.values():
+            if reg.compactor is not None:
+                reg.compactor.stop(wait=wait)
+
     def warmup(self, index_id: str, k: int, run: bool = True) -> List[ProgramKey]:
         """Build (and with ``run=True`` run once on zero queries, which
         builds the kernels) every bucket's program for ``(index_id, k)``."""
         reg = self._reg(index_id)
-        keys = [ProgramKey(index_id, reg.algo, b, int(k), params_key(reg.params))
+        snap = reg.index.snapshot() if reg.algo == "mutable" else None
+        generation = snap.generation if snap is not None else 0
+        keys = [ProgramKey(index_id, reg.algo, b, int(k), params_key(reg.params), generation)
                 for b in bucket_sizes(self.max_batch)]
         built = self.cache.warmup(keys, lambda key: (lambda: self._build_program(reg, key.bucket, key.k)))
         if run:
             for key in keys:
                 prog = self.cache.get(key, lambda: self._build_program(reg, key.bucket, key.k))
                 zeros = torch.zeros((key.bucket, int(reg.index.dim)), device=self.res.device)
-                out = prog(zeros)
-                out[0].cpu()  # wait for the run
+                out = prog(zeros, snap) if snap is not None else prog(zeros)
+                _host(out[0])  # wait for the run
         return built
 
     # -- internals ---------------------------------------------------------
@@ -205,6 +288,10 @@ class ServingEngine:
         from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
 
         kw = reg.search_kwargs
+        if reg.algo == "mutable":
+            # the snapshot is not baked into the closure: it arrives per
+            # dispatch, so a cached program never serves a stale view
+            return lambda q, snap: snap.search(q, k, params=reg.params, **kw)
         if reg.algo == "brute_force":
             return lambda q: brute_force.search(reg.index, q, k, query_batch=bucket,
                                                 dataset=reg.dataset, **kw)
@@ -232,28 +319,59 @@ class ServingEngine:
         n = rows.shape[0]
         bucket = bucket_for(n, self.max_batch)
         padded = torch.from_numpy(pad_rows(rows, bucket)).to(self.res.device)
-        key = ProgramKey(reg.index_id, reg.algo, bucket, k, params_key(reg.params))
+        # one snapshot per micro-batch: every request in the batch sees
+        # the same immutable view, and writers never race the dispatch
+        snap = reg.index.snapshot() if reg.algo == "mutable" else None
+        generation = snap.generation if snap is not None else 0
+        if snap is not None:
+            # a batch that crosses a background flip lands wholly on one
+            # side of it (this snapshot); count the crossing
+            if reg.last_generation >= 0 and generation != reg.last_generation:
+                obs.inc("serve.generation_flips", index_id=reg.index_id)
+            reg.last_generation = generation
+        key = ProgramKey(reg.index_id, reg.algo, bucket, k, params_key(reg.params), generation)
         try:
             program = self.cache.get(key, lambda: self._build_program(reg, bucket, k))
+            faults.fire("serve.dispatch", index_id=reg.index_id, algo=reg.algo, bucket=bucket,
+                        rows=n)
             t0 = time.perf_counter()
-            dv, iv = program(padded)
-            d_np = dv.cpu().numpy()
-            i_np = iv.cpu().numpy()
+            with obs.span("serve.dispatch", algo=reg.algo, bucket=bucket, rows=n, k=k) as sp:
+                dv, iv = program(padded, snap) if snap is not None else program(padded)
+                sp.sync((dv, iv))
+            d_np = _host(dv)
+            i_np = _host(iv)
             self.batcher.note_service_time(time.perf_counter() - t0)
         except Exception as e:  # the serving loop must survive one bad batch
+            obs.inc("serve.dispatch_errors", index_id=reg.index_id, kind=type(e).__name__)
             for r in batch:
                 r.future.set_exception(e)
             return
+        if obs.is_enabled():
+            obs.inc("serve.batches", index_id=reg.index_id, algo=reg.algo)
+            obs.observe("serve.batch_fill", n / bucket)
+            obs.observe("serve.batch_rows", float(n))
+            if snap is not None:
+                obs.set_gauge("serve.generation", float(generation), index_id=reg.index_id)
         t_done = self.batcher.now()
         off = 0
         for r in batch:
             m = r.n_rows
+            tiq_ms = (now - r.t_arrival) * 1e3
+            if obs.is_enabled():
+                obs.observe("serve.time_in_queue_ms", tiq_ms)
             r.future.set_result(ServeResult(
                 distances=d_np[off : off + m],
                 indices=i_np[off : off + m],
-                time_in_queue_ms=(now - r.t_arrival) * 1e3,
+                time_in_queue_ms=tiq_ms,
                 latency_ms=(t_done - r.t_arrival) * 1e3,
                 bucket=bucket,
                 batch_rows=n,
+                generation=generation,
             ))
             off += m
+
+
+def _host(x) -> np.ndarray:
+    """A search output on the host (mutable snapshots already return
+    host arrays)."""
+    return x if isinstance(x, np.ndarray) else x.cpu().numpy()
