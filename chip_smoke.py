@@ -1,7 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -97,6 +97,17 @@ Phases, in order; any failure exits non-zero:
    seconds, B1's launches on the main and delta scans, the device busy
    share of a backlog); a cold reopen with equal rows and answers; a
    compaction equal to a fresh build at 65,536 rows.
+9. robustness in serving (:func:`robust_phase`): phase 7's sharded
+   IVF-Flat served with ``merge_mode="ring"`` through the degraded path
+   (a timed health probe a batch): all healthy, bit-equal to the plain
+   sharded search; shard 2 down through the ``sharded_ann.shard_scan``
+   fault seam, coverage 0.75, bit-equal to the search with that shard
+   masked, none of its ids; a slow shard left out; a ``min_coverage``
+   floor failing its futures typed; the ``pallas.pq_scan`` and
+   ``pallas.cagra_search`` seams on phase 4's and 6's served indexes
+   failing one batch typed and the next served; B6 once a batch; obs off
+   against on (QPS of the IVF-Flat and sharded backlogs, the span tree of
+   one dispatch); ``health()``.
 
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
 256, with ties, signed zeros, padding and ``inf``) against its plain
@@ -120,7 +131,8 @@ IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 (:func:`serve_qps`), ``ring`` phase 2's ring checks and lines, ``b3``
 phase 2's B3 checks, ``rabitq`` phase 5, ``b1`` and ``b4`` phase 2's B1
 or B4 checks and then that kernel at the main path's shapes on the 1M
-index, ``mutable`` phase 8; with ``--tree`` they import
+index, ``mutable`` phase 8, ``robust`` phase 9 (with ``--tree`` only the
+sharded backlog's QPS, :func:`sharded_serve_qps`); with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
 one card, old / new / new / old, the lines an older kernel cannot give
@@ -247,6 +259,14 @@ def compare_topk(kv, ks, rv, rs) -> float:
     if diff.mean() > 0.01:
         raise AssertionError(f"{diff.mean():.4f} of slots differ (ties allowed, but not this many)")
     return float(np.abs(kv[fin] - rv[fin]).max()) if fin.any() else 0.0
+
+
+def request_sizes(rng, nq: int) -> list:
+    """Phase 3's requests: 1-128 rows each until ``nq`` rows."""
+    sizes = []
+    while sum(sizes) < nq:
+        sizes.append(int(min(rng.integers(1, 129), nq - sum(sizes))))
+    return sizes
 
 
 def served(results, n: int):
@@ -1421,9 +1441,7 @@ def serve_qps(card: str, tree: str, seed: int, rounds: int = 3, n: int = 1_000_0
     eng.register("sift1m", "ivf_flat", index,
                  params=ivf_flat.IvfFlatSearchParams(n_probes=20, fused_qt=SERVE_QT))
     eng.warmup("sift1m", 10)
-    sizes = []
-    while sum(sizes) < nq:
-        sizes.append(int(min(rng.integers(1, 129), nq - sum(sizes))))
+    sizes = request_sizes(rng, nq)
     starts = np.cumsum([0] + sizes[:-1])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1443,6 +1461,39 @@ def serve_qps(card: str, tree: str, seed: int, rounds: int = 3, n: int = 1_000_0
     emit(card, phase="serve", metric="serve_qps", tree=os.path.basename(os.path.abspath(tree)),
          one_client=one_client, backlog=backlog, requests=len(sizes), n_probes=20,
          fused_qt=SERVE_QT)
+
+
+def sharded_serve_qps(card: str, tree: str, seed: int, rounds: int = 3, n: int = 1_000_000,
+                      nq: int = 10_000) -> None:
+    """QPS of phase 7's sharded serving on one tree, obs off: :func:`serve_qps`'s
+    index and requests, registered as ``sharded_ivf_flat`` over
+    ``make_mesh(["cuda:0"] * 4)`` (``n_probes=20``, ``merge_mode="ring"``),
+    served as a backlog ``rounds`` times (host clock)."""
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.parallel import make_mesh
+    from raft_tpu_torch.serve import ServingEngine
+
+    rng = np.random.default_rng(seed)
+    gen = Clustered(rng, 128, 4096)
+    X, Q = gen.sample(n), gen.sample(nq)
+    res = Resources(device="cuda", seed=seed)
+    index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024), res=res)
+    eng = ServingEngine(max_batch=128, max_wait_ms=2.0, queue_capacity=nq, res=res)
+    eng.register("sharded", "sharded_ivf_flat", index,
+                 params=ivf_flat.IvfFlatSearchParams(n_probes=20),
+                 mesh=make_mesh(["cuda:0"] * 4), merge_mode="ring")
+    eng.warmup("sharded", 10)
+    sizes = request_sizes(rng, nq)
+    qps = []
+    for _ in range(rounds):
+        futs, secs = backlog(eng, "sharded", Q, sizes, 10)
+        for f in futs:
+            f.result()
+        qps.append(nq / secs)
+    emit(card, phase="robust", metric="sharded_serve_qps",
+         tree=os.path.basename(os.path.abspath(tree)), backlog=qps, requests=len(sizes),
+         n_probes=20, shards=4, merge_mode="ring")
 
 
 def ring_checks(card: str, rng, max_err: dict) -> None:
@@ -1679,9 +1730,7 @@ def mutable_phase(card, res, X, Q, gt_i, gen, k: int, seed: int, immutable=None)
                                          f"snapshot().search at generation {expect_gen}")
 
         check_sample(1)
-        sizes = []
-        while sum(sizes) < nq:
-            sizes.append(int(min(rng.integers(1, 129), nq - sum(sizes))))
+        sizes = request_sizes(rng, nq)
         # 800 rows a second, at most 16,384: the delta after the flip (the
         # rows written since the pin) stays inside B1's window
         writer_rows = gen.sample(16_384)
@@ -1800,11 +1849,301 @@ def mutable_phase(card, res, X, Q, gt_i, gen, k: int, seed: int, immutable=None)
     return dict(launches=serve["b1_launches"], delta=b1_delta[k], serve=serve)
 
 
+def backlog(eng, index_id, Q, sizes, k):
+    """Queue every request of ``sizes`` rows of ``Q``, drain, and return
+    the futures and the seconds (host clock, ending when every future is
+    done)."""
+    starts = np.cumsum([0] + list(sizes[:-1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [eng.submit(index_id, Q[s : s + m], k) for s, m in zip(starts, sizes)]
+    eng.run_until_idle()
+    for f in futs:
+        f.exception()
+    return futs, time.perf_counter() - t0
+
+
+def backlog_batches(sizes, max_batch: int = 128) -> list:
+    """The micro-batches ``MicroBatcher`` forms from a backlog of one group
+    (every request queued before the first batch): the oldest request,
+    then every later one that still fits, up to ``max_batch`` rows. Lists
+    of request positions."""
+    queue, out = list(range(len(sizes))), []
+    while queue:
+        batch, rows = [], 0
+        for r in queue:
+            if rows + sizes[r] <= max_batch:
+                batch.append(r)
+                rows += sizes[r]
+        queue = [r for r in queue if r not in set(batch)]
+        out.append(batch)
+    return out
+
+
+def check_served_batches(what: str, Q, sizes, results, search, device="cuda") -> int:
+    """Hold each micro-batch of a served backlog (:func:`backlog_batches`)
+    ``torch.equal`` (ids and distance bits) to ``search`` of the same
+    zero-padded batch. Returns the number of batches."""
+    starts = np.cumsum([0] + list(sizes[:-1]))
+    batches = backlog_batches(sizes)
+    for b, batch in enumerate(batches):
+        q = np.concatenate([Q[starts[r] : starts[r] + sizes[r]] for r in batch])
+        rows = q.shape[0]
+        if any(results[r].batch_rows != rows for r in batch):
+            raise AssertionError(f"{what}: the engine formed other batches than the batcher's")
+        padded = torch.zeros((results[batch[0]].bucket, q.shape[1]), device=device)
+        padded[:rows] = torch.from_numpy(q).to(device)
+        d, ids = search(padded)
+        got_i = np.concatenate([results[r].indices for r in batch])
+        got_d = np.concatenate([results[r].distances for r in batch])
+        if not (np.array_equal(got_i, ids[:rows].cpu().numpy())
+                and np.array_equal(got_d.view(np.int32), d[:rows].cpu().numpy().view(np.int32))):
+            raise AssertionError(f"{what}: served batch {b} is not bit-equal to the search of "
+                                 "the same padded batch")
+    return len(batches)
+
+
+def served_degraded(results, n: int):
+    """Ids and the share of empty slots of served results that may hold
+    fewer than k neighbours (a shard left out): fails unless every slot is
+    a valid id at a finite distance or ``-1`` at ``inf``, ascending, the
+    empty slots last."""
+    ids = np.concatenate([r.indices for r in results])
+    dist = np.concatenate([r.distances for r in results])
+    empty = ids < 0
+    if not ((ids < n).all() and np.isfinite(dist[~empty]).all() and np.isinf(dist[empty]).all()
+            and (dist[:, 1:] >= dist[:, :-1]).all()):
+        raise AssertionError("served results are not valid ascending neighbours and empty slots")
+    return ids, float(empty.mean())
+
+
+def span_tree(spans) -> list:
+    """``[name, depth, count]`` of each distinct span of one dispatch."""
+    tree = {}
+    for sp in spans:
+        key = (sp["name"], sp["depth"])
+        tree[key] = tree.get(key, 0) + 1
+    return [[name, depth, count] for (name, depth), count in
+            sorted(tree.items(), key=lambda kv: (kv[0][1], kv[0][0]))]
+
+
+def robust_phase(card, res, index, pq_index, cg, X_card, Q, gt_i, k: int, sizes) -> dict:
+    """Phase 9: robustness in serving at full width (:func:`run_phases`'s
+    ``robust`` part). Phase 7's lists-sharded IVF-Flat (``index``, 1M x
+    128, over ``make_mesh(["cuda:0"] * 4)``, ``n_probes=20``) served as
+    ``sharded_ivf_flat`` with ``merge_mode="ring"`` (B6 a batch), the
+    request backlog of phase 3 (``sizes``):
+
+    (a) all healthy: coverage 1.0, not degraded, every batch bit-equal to
+        ``sharded_ivf_flat_search(merge_mode="ring")`` of the same padded
+        batch, B6 launched once a batch;
+    (b) shard 2 down (``sharded_ann.shard_scan`` raises ``ShardFailure``
+        for it): coverage 0.75, degraded, ``failed_shards == (2,)``, every
+        batch bit-equal to the search with ``health=(T, T, F, T)``, no id
+        of shard 2's lists, B6 once a batch, recall@10 reported;
+    (c) shard 1 slow (a 0.3 s latency spec against ``slow_shard_s`` 0.25):
+        shard 1 left out, ``serve.slow_shards`` counts it;
+    (d) a registration with ``min_coverage=0.9`` under (b)'s spec: every
+        future fails with ``ShardFailure``, the next registration's batch
+        is served;
+    (e) ``pallas.pq_scan`` on phase 4's IVF-PQ (``pq_index``, 8x refine)
+        and ``pallas.cagra_search`` on phase 6's CAGRA (``cg``) with
+        ``KernelFailure``: the batch's futures fail typed with no launch,
+        ``serve.dispatch_errors`` counts them, the next batch is served
+        ``torch.equal`` to an uninjected search, and an explicit
+        ``mode="fused"`` search raises;
+    (f) obs off against on: the IVF-Flat and sharded backlogs' QPS, in
+        turns, and the span tree of one 128-row dispatch of each;
+    (g) ``health()`` as one JSON line.
+
+    Returns the B6 launches of the degraded backlogs."""
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.core.errors import KernelFailure, ShardFailure
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import cagra_search, pq_scan
+    from raft_tpu_torch.ops import ring_topk as rt
+    from raft_tpu_torch.parallel import make_mesh, sharded_ivf_flat_search
+    from raft_tpu_torch.robust import faults
+    from raft_tpu_torch.serve import ServingEngine
+    from raft_tpu_torch.stats.recall import neighborhood_recall
+
+    mesh = make_mesh(["cuda:0"] * 4)
+    dev = X_card.device
+    nq, n = Q.shape[0], index.size
+    params = ivf_flat.IvfFlatSearchParams(n_probes=20)
+    serve_pq = dataclasses.replace(ivf_pq.IvfPqSearchParams(n_probes=30), fused_qt=SERVE_QT_PQ)
+    cp = cagra.CagraSearchParams(itopk_size=128, search_width=8, dedup="post",
+                                 init_sample=SERVE_INIT_SAMPLE)
+    eng = ServingEngine(max_batch=128, max_wait_ms=2.0, queue_capacity=nq, res=res)
+    eng.register("sharded", "sharded_ivf_flat", index, params=params, mesh=mesh,
+                 merge_mode="ring")
+    eng.register("floor", "sharded_ivf_flat", index, params=params, mesh=mesh,
+                 merge_mode="ring", min_coverage=0.9)
+    eng.register("flat", "ivf_flat", index, params=dataclasses.replace(params,
+                                                                       fused_qt=SERVE_QT))
+    eng.register("pq", "ivf_pq", pq_index, params=serve_pq, dataset=X_card)
+    eng.register("cagra", "cagra", cg, params=cp)
+    for index_id in ("sharded", "flat", "pq", "cagra"):
+        eng.warmup(index_id, k)
+    out = {}
+
+    def sharded_backlog(step: str, health=None):
+        rt.fused_ring_topk.launches = 0
+        futs, secs = backlog(eng, "sharded", Q, sizes, k)
+        launches = rt.fused_ring_topk.launches
+        results = [f.result() for f in futs]
+        ids, empty = served_degraded(results, n)
+        n_batches = check_served_batches(
+            f"robust ({step})", Q, sizes, results,
+            lambda q: sharded_ivf_flat_search(mesh, index, q, k, params, merge_mode="ring",
+                                              health=health), dev)
+        recall = neighborhood_recall(torch.from_numpy(ids), gt_i)
+        emit(card, phase="robust", step=step, metric="sharded_backlog", qps=nq / secs,
+             recall=recall, empty_slots=empty, batches=n_batches, b6_launches=launches,
+             coverage=sorted({r.coverage for r in results}),
+             degraded=sorted({r.degraded for r in results}),
+             failed_shards=sorted({r.failed_shards for r in results}))
+        if launches != n_batches:
+            raise AssertionError(f"robust ({step}): B6 launched {launches} times over "
+                                 f"{n_batches} batches")
+        return results, ids, recall, launches
+
+    # (a) all healthy
+    results, _, healthy_recall, _ = sharded_backlog("a_all_healthy")
+    served(results, n)  # all healthy: k valid neighbours a row
+    if any(r.coverage != 1.0 or r.degraded or r.failed_shards for r in results):
+        raise AssertionError("robust (a): an all-healthy batch reported degraded coverage")
+
+    # (b) shard 2 down
+    l_local = index.n_lists // mesh.size
+    shard2 = index.list_indices[2 * l_local:3 * l_local].reshape(-1)
+    shard2 = shard2[shard2 >= 0]
+    with faults.injected("sharded_ann.shard_scan", error=ShardFailure("chaos", shard=2),
+                         match={"shard": 2}):
+        results, ids, recall, out["b6_launches"] = sharded_backlog(
+            "b_shard_2_down", health=(True, True, False, True))
+    if any(r.coverage != 0.75 or not r.degraded or r.failed_shards != (2,) for r in results):
+        raise AssertionError("robust (b): a batch without shard 2 did not report coverage "
+                             "0.75, degraded, failed_shards (2,)")
+    lost = int(torch.isin(torch.from_numpy(ids).to(dev).long(), shard2.long()).sum())
+    emit(card, phase="robust", step="b_shard_2_down", metric="recall@10", value=recall,
+         all_healthy=healthy_recall, ids_of_shard_2=lost, shard_2_rows=int(shard2.numel()),
+         queries_without_a_neighbour=float((ids < 0).all(axis=1).mean()))
+    if lost:
+        raise AssertionError(f"robust (b): {lost} ids of shard 2's lists were served")
+
+    # (c) shard 1 slow; (d) a coverage floor; (e) kernel seams: read from obs
+    obs.registry().reset()
+    obs.enable()
+    try:
+        slow = sizes[:8]
+        with faults.injected("sharded_ann.shard_scan", latency_s=0.3, match={"shard": 1}):
+            futs, secs = backlog(eng, "sharded", Q, slow, k)
+        results = [f.result() for f in futs]
+        counters = obs.registry().as_dict()["counters"]
+        slow_count = counters.get('serve.slow_shards{index_id="sharded",shard="1"}', 0.0)
+        emit(card, phase="robust", step="c_shard_1_slow", metric="slow_shard",
+             requests=len(slow), seconds=secs, slow_shard_s=eng.slow_shard_s,
+             failed_shards=sorted({r.failed_shards for r in results}), slow_shards=slow_count)
+        if any(r.failed_shards != (1,) or r.coverage != 0.75 for r in results) or not slow_count:
+            raise AssertionError("robust (c): the slow shard 1 was not left out and counted")
+
+        with faults.injected("sharded_ann.shard_scan", error=ShardFailure("chaos", shard=2),
+                             match={"shard": 2}):
+            floor_futs, _ = backlog(eng, "floor", Q, sizes[:6], k)
+            next_futs, _ = backlog(eng, "sharded", Q, sizes[6:8], k)
+        errors = [type(f.exception()).__name__ for f in floor_futs]
+        nxt = [f.result() for f in next_futs]
+        emit(card, phase="robust", step="d_below_the_floor", metric="min_coverage",
+             min_coverage=0.9, errors=errors, next_registration_coverage=[r.coverage for r in nxt])
+        if (any(not isinstance(f.exception(), ShardFailure) for f in floor_futs)
+                or any(r.coverage != 0.75 for r in nxt)):
+            raise AssertionError(f"robust (d): futures under the floor ended {errors}, the "
+                                 f"next registration's coverage {[r.coverage for r in nxt]}")
+
+        seams = (("pq", "pallas.pq_scan", pq_scan.fused_pq_topk, 128,
+                  lambda q, mode, qb: ivf_pq.search(pq_index, q, k, serve_pq, query_batch=qb,
+                                                    mode=mode, dataset=X_card)),
+                 ("cagra", "pallas.cagra_search", cagra_search.cagra_fused_search, 37,
+                  lambda q, mode, qb: cagra.search(cg, q, k, cp, query_batch=qb, mode=mode)))
+        for index_id, point, kernel, rows, search in seams:
+            q = Q[:rows]
+            kernel.launches = 0
+            with faults.injected(point, error=KernelFailure("chaos")):
+                failed, _ = backlog(eng, index_id, q, [rows], k)
+                failed_launches = kernel.launches
+                try:
+                    search(torch.from_numpy(q).to(dev), "fused", rows)
+                    explicit = "served"
+                except KernelFailure:
+                    explicit = "KernelFailure"
+            kernel.launches = 0
+            ok, _ = backlog(eng, index_id, q, [rows], k)
+            ok_launches = kernel.launches
+            res_ok = ok[0].result()
+            bucket = res_ok.bucket
+            padded = torch.zeros((bucket, q.shape[1]), device=dev)
+            padded[:rows] = torch.from_numpy(q).to(dev)
+            d, ids = search(padded, "auto", bucket)
+            equal = (np.array_equal(res_ok.indices, ids[:rows].cpu().numpy())
+                     and np.array_equal(res_ok.distances.view(np.int32),
+                                        d[:rows].cpu().numpy().view(np.int32)))
+            counters = obs.registry().as_dict()["counters"]
+            errs = counters.get(f'serve.dispatch_errors{{index_id="{index_id}",'
+                                f'kind="KernelFailure"}}', 0.0)
+            emit(card, phase="robust", step="e_kernel_seam", point=point, index_id=index_id,
+                 rows=rows, error=type(failed[0].exception()).__name__,
+                 launches_while_failing=failed_launches, dispatch_errors=errs,
+                 next_batch_launches=ok_launches, next_batch_equal=equal,
+                 explicit_fused=explicit)
+            if not (isinstance(failed[0].exception(), KernelFailure) and failed_launches == 0
+                    and errs == 1.0 and ok_launches > 0 and equal
+                    and explicit == "KernelFailure"):
+                raise AssertionError(f"robust (e) at {point}: the failed batch, its count, the "
+                                     "next batch or the explicit fused search is wrong")
+    finally:
+        obs.disable()
+        obs.registry().reset()
+
+    # (f) obs off against on, in turns: off / on / on / off
+    qps = {("flat", False): [], ("flat", True): [], ("sharded", False): [],
+           ("sharded", True): []}
+    for on in (False, True, True, False):
+        obs.enable(on)
+        for index_id in ("flat", "sharded"):
+            futs, secs = backlog(eng, index_id, Q, sizes, k)
+            for f in futs:
+                f.result()
+            qps[index_id, on].append(nq / secs)
+        obs.registry().reset()
+    trees = {}
+    obs.enable()
+    try:
+        for index_id in ("flat", "sharded"):
+            obs.registry().reset()
+            futs, _ = backlog(eng, index_id, Q, [128], k)
+            futs[0].result()
+            trees[index_id] = span_tree(obs.registry().spans())
+    finally:
+        obs.disable()
+        obs.registry().reset()
+    for index_id in ("flat", "sharded"):
+        emit(card, phase="robust", step="f_overhead", metric="backlog_qps", index_id=index_id,
+             obs_off=qps[index_id, False], obs_on=qps[index_id, True],
+             on_over_off=float(np.mean(qps[index_id, True]) / np.mean(qps[index_id, False])),
+             dispatch_span_tree=trees[index_id])
+
+    # (g) health
+    emit(card, phase="robust", step="g_health", metric="health", value=eng.health())
+    return out
+
+
 #: the parts ``--phases`` runs alone
-PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable")
+PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable", "robust")
 
 
-def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
+def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
+               compare: bool = False) -> None:
     """Parts of the run alone (``--phases``), on the data the whole run
     makes from ``seed``, in this order: ``paths`` (:func:`paths_ms`),
     ``serve`` (:func:`serve_qps`),
@@ -1815,9 +2154,12 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
     main path's two shapes on the 1M IVF-Flat index (:func:`b1_main`);
     ``b4``: phase 2's B4 checks (:func:`cagra_checks`), then the 1M
     CAGRA index built as phase 6 builds it and B4 and ``cagra.search`` at
-    the main path's shapes (:func:`b4_main`); ``mutable`` last: phase 8
-    (:func:`mutable_phase`) on phase 3's data. Each builds the kernels it
-    launches first. ``tree`` is the tree whose
+    the main path's shapes (:func:`b4_main`); ``mutable``: phase 8
+    (:func:`mutable_phase`) on phase 3's data; ``robust`` last: phase 9
+    (:func:`robust_phase`) on phase 3's data and indexes built as phases 3,
+    4 and 6 build them, or with ``compare`` (``--tree`` given) only the
+    sharded backlog's QPS (:func:`sharded_serve_qps`). Each builds the
+    kernels it launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
@@ -1911,6 +2253,33 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool) -> None:
         X, Q = gen.sample(1_000_000), gen.sample(10_000)
         _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
         mutable_phase(card, res, X, Q, gt_i, gen, 10, seed)
+    if "robust" in parts and compare:
+        sharded_serve_qps(card, tree, seed)
+    elif "robust" in parts:
+        from raft_tpu_torch.neighbors import cagra
+        from raft_tpu_torch.ops import cagra_search, pq_scan
+
+        mods = {"fused_list_topk": ivf_scan, "fused_pq_topk": pq_scan,
+                "cagra_fused_search": cagra_search, "ring_topk": rt}
+        with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
+            builds = {name: ex.submit(mod.build_kernel, True) for name, mod in mods.items()}
+            for name, f in builds.items():
+                emit(card, phase="build", kernel=name, build_s=f.result()[1])
+        res = Resources(device="cuda", seed=seed)
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
+        gen = Clustered(rng, 128, 4096)
+        X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        sizes = request_sizes(rng, Q.shape[0])
+        index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024), res=res)
+        _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
+        X_card = torch.from_numpy(X).cuda()
+        pq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024), res=res)
+        cg = cagra.build(X_card, cagra.CagraIndexParams(intermediate_graph_degree=32,
+                                                        graph_degree=16, build_algo="ivf_pq"),
+                         res=res, pq_index=pq_index)
+        robust_phase(card, res, index, pq_index, cg, X_card, Q, gt_i, 10, sizes)
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -1938,7 +2307,8 @@ def main() -> int:
     tree = os.path.abspath(args.tree or here)
     sys.path.insert(0, tree)
     if parts:
-        run_phases(card_line(), parts, args.seed, tree, this_tree=tree == here)
+        run_phases(card_line(), parts, args.seed, tree, this_tree=tree == here,
+                   compare=args.tree is not None)
         return 0
     from raft_tpu_torch.core.resources import Resources
     from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
@@ -2054,9 +2424,7 @@ def main() -> int:
     eng = ServingEngine(max_batch=128, max_wait_ms=2.0, queue_capacity=nq, res=res)
     eng.register("sift1m", "ivf_flat", index, params=serve_params)
     eng.warmup("sift1m", k)
-    sizes = []
-    while sum(sizes) < nq:
-        sizes.append(int(min(rng.integers(1, 129), nq - sum(sizes))))
+    sizes = request_sizes(rng, nq)
     starts = np.cumsum([0] + sizes[:-1])
     flat_launches = serve_both_ways(card, eng, "sift1m", Q, sizes, starts, k, n, gt,
                                     ivf_scan.fused_list_topk, "main", serve_qt=SERVE_QT,
@@ -2445,6 +2813,9 @@ def main() -> int:
     # ---- phase 8: the mutable index, served across a background flip -------
     mutable = mutable_phase(card, res, X, Q, gt_i, gen, k, args.seed, immutable=index)
 
+    # ---- phase 9: robustness in serving --------------------------------------
+    robust = robust_phase(card, res, index, pq_index, cg, X_card, Q, gt_i, k, sizes)
+
     rows = []
     for name, src, line, launches, t in (
             ("fused_list_topk", "ivf_scan.cu", "raft_tpu/ops/pallas/ivf_scan.py:321", flat_launches, b1),
@@ -2468,6 +2839,8 @@ def main() -> int:
                             launches_mutable_delta=mutable["serve"]["b1_launches_delta"])
         if name == "hop_merge":  # on one card B5's folds run inside B6's and B7's launches
             rows[-1]["folds_inside_rings"] = folds
+        if name == "fused_ring_topk":  # phase 9's backlog with shard 2 down
+            rows[-1]["launches_degraded"] = robust["b6_launches"]
         if name == "cagra_fused_search":
             rows[-1].update(per_step_us=t["per_step_us"], chain_floor_ms=t.get("chain_floor_ms"))
     print(json.dumps({"kernels": rows}), flush=True)

@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.ops.distance import DistanceType, is_min_close, resolve_metric, row_norms
@@ -203,7 +204,10 @@ def fit(
     res: Optional[Resources] = None,
     **kwargs,
 ) -> KMeansOutput:
-    """Lloyd EM (``kmeans::fit``). ``X`` is taken on its own device."""
+    """Lloyd EM (``kmeans::fit``). ``X`` is taken on its own device. With
+    :mod:`raft_tpu_torch.obs` enabled: ``kmeans.fit.calls{init}``,
+    ``.samples``, synced ``kmeans.fit.init`` and ``kmeans.fit.lloyd`` spans
+    a trial and the ``.n_iter`` histogram."""
     if params is None:
         params = KMeansParams(**kwargs)
     metric = resolve_metric(params.metric)
@@ -229,19 +233,28 @@ def fit(
     )
     expects(tuple(weights.shape) == (n,), "sample_weights must be [n_samples]")
     min_close = is_min_close(metric)
+    if obs.is_enabled():
+        obs.inc("kmeans.fit.calls", init=str(params.init if centroids is None else "array"))
+        obs.inc("kmeans.fit.samples", float(n))
     gen = make_generator(params.seed, X.device)
     best = None
-    for _trial in range(max(1, params.n_init)):
-        if centroids is not None:
-            init_centers = torch.as_tensor(centroids).to(device=X.device, dtype=torch.float32)
-            expects(tuple(init_centers.shape) == (k, d), "explicit centroids shape mismatch")
-        elif params.init == "random":
-            idx = torch.randperm(n, generator=gen, device=X.device)[:k]
-            init_centers = X[idx]
-        else:
-            init_centers = kmeans_plus_plus(gen, X, k, sample_weights)
-        out = _lloyd(X, init_centers, k, metric, params.max_iter, params.tol, weights,
-                     flash=params.algorithm == "flash")
+    for trial in range(max(1, params.n_init)):
+        with obs.span("kmeans.fit.init", k=k, n=n, trial=trial) as sp:
+            if centroids is not None:
+                init_centers = torch.as_tensor(centroids).to(device=X.device, dtype=torch.float32)
+                expects(tuple(init_centers.shape) == (k, d), "explicit centroids shape mismatch")
+            elif params.init == "random":
+                idx = torch.randperm(n, generator=gen, device=X.device)[:k]
+                init_centers = X[idx]
+            else:
+                init_centers = kmeans_plus_plus(gen, X, k, sample_weights)
+            sp.sync(init_centers)
+        with obs.span("kmeans.fit.lloyd", k=k, n=n, trial=trial, algorithm=params.algorithm) as sp:
+            out = _lloyd(X, init_centers, k, metric, params.max_iter, params.tol, weights,
+                         flash=params.algorithm == "flash")
+            sp.sync(out.centroids)
+        if obs.is_enabled():
+            obs.observe("kmeans.fit.n_iter", float(out.n_iter))
         better = best is None or (
             out.inertia < best.inertia if min_close else out.inertia > best.inertia
         )

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.errors import CorruptIndexError
+from raft_tpu_torch.robust import faults
 
 SERIALIZATION_VERSION = 4
 _MAGIC = b"RAFT_TPU"
@@ -149,8 +150,11 @@ def save_stream(stream: BinaryIO, kind: str, version: int, body: bytes) -> None:
 def load_stream(stream: BinaryIO, kind: str) -> Tuple[int, BinaryIO]:
     """Open an index snapshot: returns ``(index_version, payload_stream)``.
     v4 envelopes are length- and CRC-verified (:class:`CorruptIndexError`);
-    v<=3 legacy streams are returned as-is, unchecked."""
+    v<=3 legacy streams are returned as-is, unchecked. The
+    ``serialize.load`` fault seam fires after the header parse, before the
+    payload is verified."""
     version = check_header(stream, kind)
+    faults.fire("serialize.load", kind=kind)
     if version < 4:
         return version, stream
     index_version = int(deserialize_scalar(stream, "uint32"))

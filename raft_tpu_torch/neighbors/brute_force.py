@@ -18,6 +18,7 @@ from typing import BinaryIO, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import expects
@@ -103,7 +104,13 @@ def search(
     """Exact k-nearest-neighbor search. Returns best-first ``(distances
     [nq, k] f32, indices [nq, k] i32)``; ``prefilter`` is a keep-bitset
     over dataset rows. ``dataset`` + ``refine_ratio > 1`` re-ranks
-    ``k * refine_ratio`` candidates against ``dataset``."""
+    ``k * refine_ratio`` candidates against ``dataset``.
+
+    With :mod:`raft_tpu_torch.obs` enabled the call records a synced
+    ``brute_force.search`` span (``mode="exact"``, the only mode ported)
+    with an ``exact_batch`` child a query batch, or a
+    ``brute_force.search.refine`` span, and counts
+    ``brute_force.search.calls{mode}`` and ``.queries``."""
     dev = index.dataset.device
     queries = ser.as_tensor(queries, dev)
     if dataset is not None and refine_ratio > 1:
@@ -113,8 +120,21 @@ def search(
         kk = min(k * refine_ratio, index.size)
         _, cand = search(index, queries, kk, prefilter=prefilter, query_batch=query_batch,
                          dataset_tile=dataset_tile, res=res)
-        return refine(ser.as_tensor(dataset, dev), queries, cand, k, metric=index.metric,
-                      metric_arg=index.metric_arg)
+        with obs.span("brute_force.search.refine", k=k, candidates=int(kk)) as sp:
+            return sp.sync(refine(ser.as_tensor(dataset, dev), queries, cand, k,
+                                  metric=index.metric, metric_arg=index.metric_arg))
+    if not obs.is_enabled():
+        return _search_dispatch(index, queries, k, prefilter, query_batch, dataset_tile, res)
+    with obs.span("brute_force.search", k=k, nq=len(queries), mode="exact") as sp:
+        return sp.sync(_search_dispatch(index, queries, k, prefilter, query_batch, dataset_tile,
+                                        res))
+
+
+def _search_dispatch(index: BruteForceIndex, queries, k: int, prefilter: Optional[Bitset],
+                     query_batch: int, dataset_tile: Optional[int],
+                     res: Optional[Resources]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact search behind :func:`search`, in query batches."""
+    dev = index.dataset.device
     expects(queries.ndim == 2, "queries must be [n_queries, dim]")
     expects(queries.shape[1] == index.dim, "query dim %d != index dim %d", queries.shape[1], index.dim)
     n = index.size
@@ -122,6 +142,9 @@ def search(
     if prefilter is not None:
         expects(prefilter.size == n, "prefilter size %d != index size %d", prefilter.size, n)
     nq = queries.shape[0]
+    if obs.is_enabled():
+        obs.inc("brute_force.search.calls", mode="exact")
+        obs.inc("brute_force.search.queries", float(nq))
     if dataset_tile is None:
         workspace = res.workspace_bytes if res is not None else 1 << 30
         qb = min(query_batch, nq)
@@ -130,8 +153,10 @@ def search(
     filter_mask = prefilter.to_mask().to(dev) if prefilter is not None else None
     out_v, out_i = [], []
     for start in range(0, nq, query_batch):
-        v, i = _search_batch(index, queries[start : start + query_batch], filter_mask,
-                             k=k, tile=dataset_tile)
+        qc = queries[start : start + query_batch]
+        with obs.span("brute_force.search.exact_batch", nq=qc.shape[0], k=k,
+                      tile=dataset_tile) as sp:
+            v, i = sp.sync(_search_batch(index, qc, filter_mask, k=k, tile=dataset_tile))
         out_v.append(v)
         out_i.append(i)
     if len(out_v) == 1:

@@ -35,6 +35,7 @@ from typing import BinaryIO, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import LogicError, expects
@@ -48,6 +49,7 @@ from raft_tpu_torch.ops.cagra_search import (
 )
 from raft_tpu_torch.ops.distance import DistanceType, resolve_metric
 from raft_tpu_torch.ops.select_k import running_merge_unique, select_k, worst_value
+from raft_tpu_torch.robust import faults
 from raft_tpu_torch.utils.graph import reverse_edges
 
 _SUPPORTED = (
@@ -294,33 +296,38 @@ def build(
         from raft_tpu_torch.neighbors import ivf_pq
         from raft_tpu_torch.neighbors.refine import refine
 
-        if pq_index is not None:
-            expects(pq_index.size == n, "pq_index covers %d rows, dataset has %d", pq_index.size, n)
-            pq = pq_index
-        else:
-            pq = ivf_pq.build(
-                dataset,
-                ivf_pq.IvfPqIndexParams(
-                    n_lists=max(1, min(1024, n // 128)),
-                    metric=metric,
-                    seed=params.seed,
-                    # pq_dim 32 keeps the fused LUT small; the exact refine
-                    # below restores the order of the shortlists
-                    pq_dim=32 if d >= 64 and d % 32 == 0 else 0,
-                    pq_kind="nibble",
-                    kmeans_n_iters=10,
-                    kmeans_trainset_fraction=min(1.0, max(0.05, 100_000 / max(n, 1))),
-                    list_cap_factor=1.1,
-                ),
-                res=res,
-            )
-        stage("pq_build")
+        with obs.span("cagra.build.pq_build", n=n):
+            if pq_index is not None:
+                expects(pq_index.size == n, "pq_index covers %d rows, dataset has %d",
+                        pq_index.size, n)
+                pq = pq_index
+            else:
+                pq = ivf_pq.build(
+                    dataset,
+                    ivf_pq.IvfPqIndexParams(
+                        n_lists=max(1, min(1024, n // 128)),
+                        metric=metric,
+                        seed=params.seed,
+                        # pq_dim 32 keeps the fused LUT small; the exact refine
+                        # below restores the order of the shortlists
+                        pq_dim=32 if d >= 64 and d % 32 == 0 else 0,
+                        pq_kind="nibble",
+                        kmeans_n_iters=10,
+                        kmeans_trainset_fraction=min(1.0, max(0.05, 100_000 / max(n, 1))),
+                        list_cap_factor=1.1,
+                    ),
+                    res=res,
+                )
+            stage("pq_build")
         top = kin + 1
-        _, cand = ivf_pq.search(pq, dataset, min(2 * top, pq.size), n_probes=24, query_batch=4096)
-        stage("self_search")
-        _, nbrs = refine(dataset, dataset, cand, top, metric=metric)
+        with obs.span("cagra.build.self_search", n=n):
+            _, cand = ivf_pq.search(pq, dataset, min(2 * top, pq.size), n_probes=24,
+                                    query_batch=4096)
+            stage("self_search")
+        with obs.span("cagra.build.refine", n=n):
+            _, nbrs = refine(dataset, dataset, cand, top, metric=metric)
+            stage("refine")
         knn_graph = _drop_self_edges(nbrs, kin)
-        stage("refine")
     graph = optimize(knn_graph, kout)
     stage("optimize")
     data_f32 = dataset.to(torch.float32)
@@ -623,7 +630,28 @@ def search(
     B4), ``"xla"`` (the unfused gather -> score -> select loop) or
     ``"auto"`` (fused on a CUDA index when :func:`fused_eligible`, else
     xla); see the module docstring. Queries run in batches of
-    ``query_batch``, the tail zero-padded when there is more than one."""
+    ``query_batch``, the tail zero-padded when there is more than one. The
+    ``pallas.cagra_search`` fault seam fires before each fused batch; an
+    injected error propagates (no fallback to xla).
+
+    With :mod:`raft_tpu_torch.obs` enabled the call records a synced
+    ``cagra.search`` span with a ``fused_batch`` or ``xla_batch`` child a
+    batch, ``cagra.search.calls{mode}``, ``.queries``, the ``.iterations``
+    and ``.beam_occupancy{mode}`` histograms and the ``.itopk`` and
+    ``.width`` gauges; disabled, one flag check."""
+    if not obs.is_enabled():
+        return _search_dispatch(index, queries, k, params, prefilter, query_batch, res, mode,
+                                **kwargs)
+    with obs.span("cagra.search", k=k, nq=len(queries)) as sp:
+        return sp.sync(_search_dispatch(index, queries, k, params, prefilter, query_batch, res,
+                                        mode, **kwargs))
+
+
+def _search_dispatch(index: CagraIndex, queries, k: int, params: Optional[CagraSearchParams],
+                     prefilter: Optional[Bitset], query_batch: int, res: Optional[Resources],
+                     mode: str, **kwargs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mode routing and query batching behind :func:`search` (apart, so the
+    obs-off path costs one flag check)."""
     if params is None:
         params = CagraSearchParams(**kwargs)
     dev = index.device
@@ -644,6 +672,12 @@ def search(
                 "fused mode needs a raw dataset, init_sample > 0, dedup='post', no prefilter, "
                 "and graph_degree <= dim (use mode='xla')")
         table = _fused_table(index, params.fused_table_dtype)
+    if obs.is_enabled():
+        obs.inc("cagra.search.calls", mode=mode)
+        obs.inc("cagra.search.queries", float(queries.shape[0]))
+        obs.observe("cagra.search.iterations", float(iters))
+        obs.set_gauge("cagra.search.itopk", float(itopk))
+        obs.set_gauge("cagra.search.width", float(width))
     use_vpq = index.dataset is None
     vpq_arrays = None
     sqnorms = index.sqnorms
@@ -675,18 +709,27 @@ def search(
             init_ids = torch.randint(0, index.size, (qc.shape[0], n_init), generator=gen,
                                      device=dev, dtype=torch.int32)
         if mode == "fused":
-            v, i = _cagra_fused_impl(
-                table, index.graph, seed_rows, seed_norms, qc, init_ids, k=k, itopk=itopk,
-                width=width, iters=iters, metric=index.metric,
-            )
+            # host-level seam before each B4 batch
+            faults.fire("pallas.cagra_search", nq=int(qc.shape[0]))
+            with obs.span("cagra.search.fused_batch", nq=qc.shape[0], iters=iters,
+                          width=width) as sp:
+                v, i = sp.sync(_cagra_fused_impl(
+                    table, index.graph, seed_rows, seed_norms, qc, init_ids, k=k, itopk=itopk,
+                    width=width, iters=iters, metric=index.metric,
+                ))
         else:
-            v, i = _cagra_search_impl(
-                index.dataset, sqnorms, index.graph, qc, init_ids, filter_bits, vpq_arrays, k=k,
-                itopk=itopk, width=width, iters=iters, metric=index.metric,
-                has_filter=filter_bits is not None, use_vpq=use_vpq, dedup=dedup,
-            )
+            with obs.span("cagra.search.xla_batch", nq=qc.shape[0], iters=iters,
+                          width=width) as sp:
+                v, i = sp.sync(_cagra_search_impl(
+                    index.dataset, sqnorms, index.graph, qc, init_ids, filter_bits, vpq_arrays,
+                    k=k, itopk=itopk, width=width, iters=iters, metric=index.metric,
+                    has_filter=filter_bits is not None, use_vpq=use_vpq, dedup=dedup,
+                ))
         if bpad:
             v, i = v[:-bpad], i[:-bpad]
+        if obs.is_enabled():
+            obs.observe("cagra.search.beam_occupancy", float((i >= 0).to(torch.float32).mean()),
+                        mode=mode)
         out_v.append(v)
         out_i.append(i)
     if len(out_v) == 1:

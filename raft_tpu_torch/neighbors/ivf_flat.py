@@ -33,6 +33,7 @@ from typing import BinaryIO, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_balanced import BalancedKMeansParams
 from raft_tpu_torch.core import serialize as ser
@@ -427,7 +428,9 @@ def search(
     [nq, k] f32, indices [nq, k] i32)`` on the index's device; unfilled
     slots get id -1. With ``dataset`` and ``params.refine_ratio > 1`` the
     scan keeps ``k * refine_ratio`` candidates and re-ranks them exactly
-    against ``dataset``."""
+    against ``dataset`` (with :mod:`raft_tpu_torch.obs` enabled, in an
+    ``ivf_flat.search.refine`` span, observing
+    ``ivf_flat.search.refine_candidates_per_query``)."""
     if params is None:
         params = IvfFlatSearchParams(**kwargs)
     dev = index.device
@@ -442,7 +445,11 @@ def search(
         kk = min(k * params.refine_ratio, index.size)
         _, cand = search(index, queries, kk, inner, prefilter=prefilter,
                          query_batch=query_batch, mode=mode, res=res)
-        return refine(ser.as_tensor(dataset, dev), queries, cand, k, metric=index.metric)
+        if obs.is_enabled():
+            obs.observe("ivf_flat.search.refine_candidates_per_query", float(kk))
+        with obs.span("ivf_flat.search.refine", k=k, candidates=int(kk)) as sp:
+            return sp.sync(refine(ser.as_tensor(dataset, dev), queries, cand, k,
+                                  metric=index.metric))
     if prefilter is not None:
         expects(prefilter.size >= index.size, "prefilter smaller than index")
     filter_bits = prefilter.bits.to(dev) if prefilter is not None else None

@@ -48,6 +48,7 @@ from typing import BinaryIO, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans import make_generator, segment_sum
 from raft_tpu_torch.cluster.kmeans_balanced import BalancedKMeansParams
@@ -63,6 +64,7 @@ from raft_tpu_torch.ops.ivf_scan import spatial_center_rank
 from raft_tpu_torch.ops.pq_scan import group_tables, ivf_pq_fused_search
 from raft_tpu_torch.ops.rabitq_scan import ivf_rabitq_fused_search, sign_bits
 from raft_tpu_torch.ops.select_k import select_k, worst_value
+from raft_tpu_torch.robust import faults
 from raft_tpu_torch.utils.math import round_up
 
 _SUPPORTED = (
@@ -910,14 +912,17 @@ def _ivf_pq_scan_impl(centers, rotation, pq_centers, codes, list_indices, rot_sq
     """The dense decode scan of one query batch (``ivf_pq.py:985-1040``):
     the coarse product (both the probe selector and the ``q.c`` term),
     the probe mask, the rotated queries, then :func:`pq_scan_core`."""
+    nq = queries.shape[0]
     qf = queries.to(torch.float32)
-    q_dot_c = qf @ centers.T
-    probed = ivf_common.probed_from_coarse(
-        ivf_common.coarse_from_dots(q_dot_c, centers, metric), n_probes)
+    with obs.span("ivf_pq.search.coarse_probe", nq=nq, n_probes=n_probes) as sp:
+        q_dot_c = qf @ centers.T
+        probed = sp.sync(ivf_common.probed_from_coarse(
+            ivf_common.coarse_from_dots(q_dot_c, centers, metric), n_probes))
     q_rot = qf @ rotation.T
-    return pq_scan_core(pq_centers, codes, list_indices, rot_sqnorms, q_rot, q_dot_c, probed,
-                        filter_bits, k=k, metric=metric, per_cluster=per_cluster,
-                        chunk_lists=chunk_lists, bf16=bf16)
+    with obs.span("ivf_pq.search.pq_scan", nq=nq, k=k) as sp:
+        return sp.sync(pq_scan_core(pq_centers, codes, list_indices, rot_sqnorms, q_rot, q_dot_c,
+                                    probed, filter_bits, k=k, metric=metric,
+                                    per_cluster=per_cluster, chunk_lists=chunk_lists, bf16=bf16))
 
 
 def fused_rank_group(index: IvfPqIndex, params: IvfPqSearchParams) -> Tuple[torch.Tensor, int]:
@@ -955,7 +960,33 @@ def search(
     ``"fused"``, ``"scan"``, ``"probe"`` or ``"auto"`` (from 128 queries,
     fused on a CUDA index when eligible, scan elsewhere); queries are searched in batches of ``query_batch`` with a
     zero-padded tail. A CUDA index runs the kernels and never falls back:
-    a kernel that fails raises."""
+    a kernel that fails raises, as does an error injected at the
+    ``pallas.pq_scan`` fault seam, in ``auto`` and explicit mode alike.
+
+    With :mod:`raft_tpu_torch.obs` enabled the call records a synced
+    ``ivf_pq.search`` span with per-phase children (``coarse_probe`` /
+    ``pq_scan`` / ``probe_scan`` / ``fused`` / ``rabitq_scan`` /
+    ``refine``) and the JAX package's counters (``ivf_pq.search.calls{mode,
+    lut}``, ``.queries``, ``.rabitq.queries``, ``.n_probes``,
+    ``.refine_candidates_per_query``); disabled, one flag check."""
+    if not obs.is_enabled():
+        return _search_dispatch(index, queries, k, params, prefilter, query_batch, mode, res,
+                                dataset, **kwargs)
+    with obs.span("ivf_pq.search", k=k, nq=len(queries)) as sp:
+        return sp.sync(_search_dispatch(index, queries, k, params, prefilter, query_batch, mode,
+                                        res, dataset, **kwargs))
+
+
+def _lut_name(lut_dtype) -> str:
+    """The ``lut`` label of ``ivf_pq.search.calls`` (the dtype's name)."""
+    return "default" if lut_dtype is None else str(lut_dtype).rsplit(".", 1)[-1]
+
+
+def _search_dispatch(index: IvfPqIndex, queries, k: int, params: Optional[IvfPqSearchParams],
+                     prefilter: Optional[Bitset], query_batch: int, mode: str,
+                     res: Optional[Resources], dataset, **kwargs):
+    """Mode routing and query batching behind :func:`search` (apart, so the
+    obs-off path costs one flag check)."""
     if params is None:
         params = IvfPqSearchParams(**kwargs)
     dev = index.device
@@ -970,7 +1001,11 @@ def search(
         kk = min(k * params.refine_ratio, index.size)
         _, cand = search(index, queries, kk, inner, prefilter=prefilter,
                          query_batch=query_batch, mode=mode, res=res)
-        return refine(ser.as_tensor(dataset, dev), queries, cand, k, metric=index.metric)
+        if obs.is_enabled():
+            obs.observe("ivf_pq.search.refine_candidates_per_query", float(kk))
+        with obs.span("ivf_pq.search.refine", k=k, candidates=int(kk)) as sp:
+            return sp.sync(refine(ser.as_tensor(dataset, dev), queries, cand, k,
+                                  metric=index.metric))
     if prefilter is not None:
         expects(prefilter.size >= index.size, "prefilter smaller than index")
     filter_bits = prefilter.bits.to(dev) if prefilter is not None else None
@@ -986,6 +1021,10 @@ def search(
         mode = ivf_common.auto_search_mode(dev, nq, fused_ok and not wants_f32_lut)
     expects(mode in ("scan", "probe", "fused"), "mode must be auto|scan|probe|fused, got %r",
             mode)
+    if obs.is_enabled():
+        obs.inc("ivf_pq.search.calls", mode=mode, lut=_lut_name(params.lut_dtype))
+        obs.inc("ivf_pq.search.queries", float(nq))
+        obs.observe("ivf_pq.search.n_probes", float(n_probes))
     if mode == "scan":
         expects(index.metric in _SUPPORTED, "scan mode: unsupported metric")
         g = scan_chunk_lists(index.n_lists, index.max_list)
@@ -1023,7 +1062,10 @@ def search(
                 tables=tables,
             )
 
-        return _batched(run, queries, query_batch)
+        # host-level seam before B2: an injected error propagates (no fallback)
+        faults.fire("pallas.pq_scan", nq=int(nq))
+        with obs.span("ivf_pq.search.fused", nq=nq, k=k, n_probes=n_probes) as sp:
+            return sp.sync(_batched(run, queries, query_batch))
 
     # the per-probe LUT gather holds [batch, pq_dim, max_list] lanes: cap
     # the batch so that stays under ~512 MB
@@ -1032,8 +1074,9 @@ def search(
     codes_u = index.codes_unpacked()
 
     def run_probe(qc):
-        return _probe_search(index, codes_u, qc, filter_bits, k=k, n_probes=n_probes,
-                             lut_dtype=params.lut_dtype)
+        with obs.span("ivf_pq.search.probe_scan", nq=qc.shape[0], k=k) as sp:
+            return sp.sync(_probe_search(index, codes_u, qc, filter_bits, k=k, n_probes=n_probes,
+                                         lut_dtype=params.lut_dtype))
 
     return _batched(run_probe, queries, query_batch)
 
@@ -1049,6 +1092,12 @@ def _rabitq_modes(index: IvfPqIndex, queries, k: int, params: IvfPqSearchParams,
         # no RaBitQ scan yet: a CPU index takes the probe path
         mode = ivf_common.auto_search_mode(index.device, queries.shape[0], fused_ok, scan_ok=False)
     expects(mode in ("probe", "fused"), "mode must be auto|probe|fused, got %r", mode)
+    nq = queries.shape[0]
+    if obs.is_enabled():
+        obs.inc("ivf_pq.search.calls", mode=mode, lut="rabitq")
+        obs.inc("ivf_pq.search.queries", float(nq))
+        obs.inc("ivf_pq.search.rabitq.queries", float(nq))
+        obs.observe("ivf_pq.search.n_probes", float(n_probes))
     if mode == "fused":
         expects(fused_ok, "fused rabitq mode needs a supported metric")
         rank, group = fused_rank_group(index, params)
@@ -1062,13 +1111,17 @@ def _rabitq_modes(index: IvfPqIndex, queries, k: int, params: IvfPqSearchParams,
                 extract_every=params.fused_extract_every,
             )
 
-        return _batched(run, queries, query_batch)
+        # the PQ fused path's seam covers B3 too, as in the JAX package
+        faults.fire("pallas.pq_scan", nq=int(nq))
+        with obs.span("ivf_pq.search.rabitq_scan", nq=nq, k=k, n_probes=n_probes) as sp:
+            return sp.sync(_batched(run, queries, query_batch))
     # the unpacked bits are [batch, max_list, D] f32: cap as the PQ probe path
     per_q = max(1, index.rot_dim * index.max_list * 4)
     query_batch = max(1, min(query_batch, (512 << 20) // per_q))
 
     def run_probe(qc):
-        return _rabitq_probe_search(index, qc, filter_bits, k=k, n_probes=n_probes)
+        with obs.span("ivf_pq.search.probe_scan", nq=qc.shape[0], k=k) as sp:
+            return sp.sync(_rabitq_probe_search(index, qc, filter_bits, k=k, n_probes=n_probes))
 
     return _batched(run_probe, queries, query_batch)
 

@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.cluster.kmeans import make_generator
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.errors import expects
@@ -117,9 +118,24 @@ def build(
     **kwargs,
 ) -> NNDescentOutput:
     """Build an approximate kNN graph (``nn_descent::build``) on
-    ``res``'s device (default ``cuda``)."""
+    ``res``'s device (default ``cuda``). With :mod:`raft_tpu_torch.obs`
+    enabled: a synced ``nn_descent.build`` span, ``nn_descent.build.calls``
+    and ``.rows``, and the ``.iterations`` histogram."""
     if params is None:
         params = NNDescentParams(**kwargs)
+    if not obs.is_enabled():
+        return _build_impl(dataset, params, res)
+    n = len(dataset)
+    obs.inc("nn_descent.build.calls")
+    obs.inc("nn_descent.build.rows", float(n))
+    with obs.span("nn_descent.build", n=n, graph_degree=params.graph_degree,
+                  intermediate=params.intermediate_graph_degree) as sp:
+        out = _build_impl(dataset, params, res)
+        sp.sync((out.graph, out.distances))
+        return out
+
+
+def _build_impl(dataset, params: NNDescentParams, res: Optional[Resources]) -> NNDescentOutput:
     res = ensure_resources(res)
     metric = resolve_metric(params.metric)
     expects(metric in _SUPPORTED, "nn_descent does not support metric %s", metric)
@@ -163,7 +179,8 @@ def build(
                                              lambda s: init_ids[s : s + chunk])
 
     half = max(1, min(params.max_samples // 2, k))
-    for _ in range(params.max_iterations):
+    it = 0
+    for it in range(params.max_iterations):
         pool, sampled = _sample_pool(gen, acc_i, sampled, half=half)
         sym = torch.cat([pool, reverse_edges(pool, n, 2 * half)], dim=1)  # [n, 4 * half]
         prev_i = acc_i
@@ -176,6 +193,8 @@ def build(
         if float(torch.mean(((~found) & (acc_i >= 0)).to(torch.float32))) < params.termination_threshold:
             break
 
+    if obs.is_enabled() and params.max_iterations > 0:
+        obs.observe("nn_descent.build.iterations", float(it + 1))
     graph = acc_i[:, :gd]
     dists = acc_v[:, :gd]
     if metric == DistanceType.L2SqrtExpanded:

@@ -12,6 +12,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.ops.distance import (
     DistanceType,
@@ -69,7 +70,24 @@ def refine(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Re-rank ``candidates`` [nq, n_cand] (int32 ids into ``dataset``,
     -1 = invalid) down to the best ``k`` by exact distance. ``query_batch``
-    0 caps the gathered [batch, n_cand, d] f32 slab at about 1 GB."""
+    0 caps the gathered [batch, n_cand, d] f32 slab at about 1 GB. With
+    :mod:`raft_tpu_torch.obs` enabled: a synced ``refine.refine`` span,
+    ``refine.refine.calls``, ``.queries`` and the
+    ``.candidates_per_query`` histogram."""
+    if not obs.is_enabled():
+        return _refine_dispatch(dataset, queries, candidates, k, metric, query_batch)
+    nq = len(queries)
+    shape = np.shape(candidates)
+    n_cand = int(shape[1]) if len(shape) == 2 else 0
+    obs.inc("refine.refine.calls")
+    obs.inc("refine.refine.queries", float(nq))
+    obs.observe("refine.refine.candidates_per_query", float(n_cand))
+    with obs.span("refine.refine", k=k, nq=nq, candidates=n_cand) as sp:
+        return sp.sync(_refine_dispatch(dataset, queries, candidates, k, metric, query_batch))
+
+
+def _refine_dispatch(dataset, queries, candidates, k: int, metric, query_batch: int):
+    """The re-rank behind :func:`refine`, in query batches."""
     metric = resolve_metric(metric)
     expects(metric in SUPPORTED, "refine: metric %s is not ported yet", metric)
     dataset = torch.as_tensor(dataset)

@@ -48,7 +48,9 @@ fallback:
   :func:`hop_merge_reference` and :func:`_scan_fold`).
 
 A CUDA mesh never falls back (the JAX package re-runs a failed ring on
-gather).
+gather): an error at the ``comms.ring_topk`` fault seam, or in a kernel,
+propagates. ``comms.ring.*`` and the ``ring_topk`` span count once per
+call (the JAX package once per traced program).
 """
 from __future__ import annotations
 
@@ -57,6 +59,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core.errors import RaftError, expects
 from raft_tpu_torch.ops.cuda_build import build_library
 from raft_tpu_torch.ops.guard import check_cuda
@@ -66,6 +69,7 @@ from raft_tpu_torch.parallel.wire_model import (
     RS_ENTRY_BYTES,
     wire_bytes_per_query,
 )
+from raft_tpu_torch.robust import faults
 
 #: The TPU engines' finite "worst" value (``inf * 0`` would poison their
 #: one-hot placement). The port's engines carry ``±inf`` and never clip.
@@ -204,8 +208,9 @@ def _prep(v, i, k: int, select_min: bool, rank: int, n: int, scan_fold: bool = F
 
 def ring_topk_reference(vs, is_, k: int, select_min: bool, mesh, scan_fold: bool = False):
     """Plain version of the ring (``_ring_topk_xla``): the same
-    reduce-scatter and all-gather hops, as :func:`comms.ppermute` verbs over
-    the mesh, with the plain fold. Returns one replicated ``(vals [nq, k],
+    reduce-scatter and all-gather hops, as raw ``comms._ppermute`` verbs
+    over the mesh (``lax.ppermute`` in the JAX package: no verb counters),
+    with the plain fold. Returns one replicated ``(vals [nq, k],
     ids [nq, k])`` pair per shard, as two lists."""
     _check_parts(mesh, vs, is_, k)
     n = mesh.size
@@ -222,7 +227,7 @@ def ring_topk_reference(vs, is_, k: int, select_min: bool, mesh, scan_fold: bool
         return out
     perm = [(j, (j + 1) % n) for j in range(n)]
     for s in range(n - 1):
-        recv = [comms.ppermute(mesh, [st[ln][(r - s) % n] for r, st in enumerate(states)], perm)
+        recv = [comms._ppermute(mesh, [st[ln][(r - s) % n] for r, st in enumerate(states)], perm)
                 for ln in range(4)]
         for r in range(n):
             with mesh.on(r):
@@ -234,8 +239,8 @@ def ring_topk_reference(vs, is_, k: int, select_min: bool, mesh, scan_fold: bool
     out_v = [st[2] for st in states]
     out_i = [st[3] for st in states]
     for s in range(n - 1):
-        rv = comms.ppermute(mesh, [out_v[r][(r + 1 - s) % n] for r in range(n)], perm)
-        ri = comms.ppermute(mesh, [out_i[r][(r + 1 - s) % n] for r in range(n)], perm)
+        rv = comms._ppermute(mesh, [out_v[r][(r + 1 - s) % n] for r in range(n)], perm)
+        ri = comms._ppermute(mesh, [out_i[r][(r + 1 - s) % n] for r in range(n)], perm)
         for r in range(n):
             with mesh.on(r):
                 b = (r - s) % n
@@ -252,14 +257,15 @@ def ring_topk_reference(vs, is_, k: int, select_min: bool, mesh, scan_fold: bool
 
 def gather_merge(mesh, vs, is_, k: int, select_min: bool):
     """The gather path's merge (the reference engine): every shard receives
-    every block (:func:`comms.allgather`) and merges the shard-major
+    every block (the raw ``comms._allgather``: no verb counters and no
+    ``comms.all_gather`` seam, as JAX's ``lax.all_gather``) and merges the shard-major
     concatenation with ``merge_parts``. One replicated pair per shard."""
     from raft_tpu_torch.ops.select_k import merge_parts
 
     _check_parts(mesh, vs, is_, None)
     mesh.fork()
-    all_v = comms.allgather(mesh, [v.to(torch.float32) for v in vs])
-    all_i = comms.allgather(mesh, [i.to(torch.int32) for i in is_])
+    all_v = comms._allgather(mesh, [v.to(torch.float32) for v in vs])
+    all_i = comms._allgather(mesh, [i.to(torch.int32) for i in is_])
     vals, ids = [], []
     for r in range(mesh.size):
         with mesh.on(r):
@@ -805,16 +811,47 @@ fused_scan_ring_topk.launches = 0
 # -- dispatch ---------------------------------------------------------------------
 
 
+def _dispatch(mesh, vs, is_, k: int, select_min: bool, scan: bool):
+    """:func:`ring_topk` / :func:`scan_ring_topk`: the ``comms.ring_topk``
+    fault seam (``kind="scan"`` for the scan ring), then the engine; with
+    obs enabled the ring's counters and span (``ring_topk.py:599-612``):
+    ``comms.ring.hops`` (``2 (n - 1)``), ``comms.ring.bytes{direction}``
+    (the wire model's reduce-scatter and all-gather lanes of one ``B``-row
+    block a hop) and ``ring_topk{engine}``, the engine named as JAX names
+    its own: "fused" for B6 / B7, "xla" for the plain schedule, "scan_"
+    before either for the scan ring."""
+    n, axis = mesh.size, mesh.axis_names[0]
+    faults.fire("comms.ring_topk", axis=axis, n_shards=n, **({"kind": "scan"} if scan else {}))
+
+    def run():
+        if mesh.is_cuda:
+            return (fused_scan_ring_topk if scan else fused_ring_topk)(mesh, vs, is_, k,
+                                                                       select_min)
+        return ring_topk_reference(vs, is_, k, select_min, mesh, scan_fold=scan)
+
+    if not obs.is_enabled():
+        return run()
+    B = -(-vs[0].shape[0] // n)
+    nbytes = float((n - 1) * B * k * (RS_ENTRY_BYTES + AG_ENTRY_BYTES))
+    obs.inc("comms.ring.hops", 2 * max(0, n - 1), axis=axis)
+    obs.inc("comms.ring.bytes", nbytes, axis=axis, direction="send")
+    obs.inc("comms.ring.bytes", nbytes, axis=axis, direction="recv")
+    engine = ("scan_" if scan else "") + ("fused" if mesh.is_cuda else "xla")
+    with obs.span("ring_topk", axis=axis, n_shards=n, k=int(k), engine=engine) as sp:
+        return sp.sync(run())
+
+
 def ring_topk(mesh, vs: Sequence[torch.Tensor], is_: Sequence[torch.Tensor], k: int, *,
               select_min: bool = True) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Ring merge of per-shard candidates (``vs``/``is_``: one ``[nq, kc]``
     tile per shard, ids global). Returns one replicated ``(vals [nq, k],
     ids [nq, k])`` pair per shard, as two lists, bit-identical to the
     gather merge. A CUDA mesh runs B6 (:func:`ring_engine` picks its
-    engine); a CPU mesh the plain schedule."""
-    if mesh.is_cuda:
-        return fused_ring_topk(mesh, vs, is_, k, select_min)
-    return ring_topk_reference(vs, is_, k, select_min, mesh)
+    engine); a CPU mesh the plain schedule. Fires the ``comms.ring_topk``
+    fault seam first; an injected error propagates (no fallback to the
+    gather merge, unlike the JAX package). With obs enabled it counts
+    ``comms.ring.*`` and records a ``ring_topk`` span."""
+    return _dispatch(mesh, vs, is_, k, select_min, scan=False)
 
 
 def scan_ring_topk(mesh, vs: Sequence[torch.Tensor], is_: Sequence[torch.Tensor], k: int, *,
@@ -823,7 +860,6 @@ def scan_ring_topk(mesh, vs: Sequence[torch.Tensor], is_: Sequence[torch.Tensor]
     fold of the full ``[nq, kc]`` tiles runs inside the ring engine
     (``merge_mode="fused_ring"``). A CUDA mesh runs B7 (B6 for tiles no
     wider than ``k``); a CPU mesh the plain schedule with
-    :func:`_scan_fold`."""
-    if mesh.is_cuda:
-        return fused_scan_ring_topk(mesh, vs, is_, k, select_min)
-    return ring_topk_reference(vs, is_, k, select_min, mesh, scan_fold=True)
+    :func:`_scan_fold`. Its seam is ``comms.ring_topk`` with
+    ``kind="scan"``; the counters and span are :func:`ring_topk`'s."""
+    return _dispatch(mesh, vs, is_, k, select_min, scan=True)

@@ -24,15 +24,29 @@ a verb over the per-shard tensor lists.
 CPU meshes (``["cpu"] * n``) run the same code with plain copies; the
 tests use them. Multi-host bootstrap (``parallel/bootstrap.py`` over
 ``torch.distributed``) is not ported.
+
+With :mod:`raft_tpu_torch.obs` enabled every public verb counts
+``comms.{verb}.calls{axis}`` and ``comms.{verb}.bytes{axis}`` (one shard's
+payload scaled by :data:`~raft_tpu_torch.parallel.wire_model.WIRE_FACTORS`)
+and records a ``comms.{verb}`` span; :func:`allgather` fires the
+``comms.all_gather`` fault seam. The JAX package counts while it traces a
+``shard_map`` body, once per compiled program; the port counts once per
+call. The ring and gather merges of sharded search call the raw verbs
+(``_allgather``, ``_ppermute``), as the JAX package's call ``lax``
+collectives directly: they neither count nor fire.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.parallel.wire_model import WIRE_FACTORS
+from raft_tpu_torch.robust import faults
 
 DEFAULT_AXIS = "data"
 
@@ -220,10 +234,36 @@ def _reduce(parts: Sequence[torch.Tensor], op: str) -> torch.Tensor:
 # -- verbs (one tensor per shard in, one per shard out) ---------------------------
 
 
-def allgather(mesh: Mesh, xs: Sequence[torch.Tensor], tiled: bool = False) -> List[torch.Tensor]:
-    """``comms_t::allgather``: shard ``r`` receives every shard's block,
-    stacked on a new leading rank axis (``tiled=True``: concatenated along
-    axis 0)."""
+def _instrumented(verb: str):
+    """Wrap a verb with the ``comms.{verb}.calls`` / ``.bytes`` counters and
+    a ``comms.{verb}`` span (``raft_tpu/parallel/comms.py:73-112``): the
+    bytes are one shard's payload (4 for :func:`barrier`, which has none)
+    scaled by the verb's wire model. Obs disabled: one flag check. A
+    composite verb (``reduce`` over ``allreduce``) counts its inner verb
+    too, as the JAX package does."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(mesh, *a, **kw):
+            if not obs.is_enabled():
+                return fn(mesh, *a, **kw)
+            axis = mesh.axis_names[0]
+            xs = a[0] if a else kw.get("xs")
+            nbytes = float(xs[0].numel() * xs[0].element_size()) if xs else 4.0
+            nbytes = WIRE_FACTORS.get(verb, lambda p, _: p)(nbytes, mesh.size)
+            obs.inc(f"comms.{verb}.calls", axis=axis)
+            obs.inc(f"comms.{verb}.bytes", nbytes, axis=axis)
+            with obs.span(f"comms.{verb}", bytes=nbytes, axis=axis) as sp:
+                return sp.sync(fn(mesh, *a, **kw))
+
+        return wrapper
+
+    return deco
+
+
+def _allgather(mesh: Mesh, xs: Sequence[torch.Tensor], tiled: bool = False) -> List[torch.Tensor]:
+    """:func:`allgather` without its counters and fault seam (the gather
+    merge's collective)."""
     _check_parts(mesh, xs)
     mesh.fork()
     out = []
@@ -235,9 +275,18 @@ def allgather(mesh: Mesh, xs: Sequence[torch.Tensor], tiled: bool = False) -> Li
     return out
 
 
-def allreduce(mesh: Mesh, xs: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
-    """``comms_t::allreduce``: every shard receives the elementwise
-    reduction (added in rank order)."""
+@_instrumented("allgather")
+def allgather(mesh: Mesh, xs: Sequence[torch.Tensor], tiled: bool = False) -> List[torch.Tensor]:
+    """``comms_t::allgather``: shard ``r`` receives every shard's block,
+    stacked on a new leading rank axis (``tiled=True``: concatenated along
+    axis 0). Fires the ``comms.all_gather`` fault seam first, the
+    collective analog of a lost participant."""
+    faults.fire("comms.all_gather", axis=mesh.axis_names[0])
+    return _allgather(mesh, xs, tiled)
+
+
+def _allreduce(mesh: Mesh, xs: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
+    """:func:`allreduce` without its counters (:func:`barrier`'s)."""
     expects(op in _REDUCE_OPS, "unknown reduce op %s", op)
     _check_parts(mesh, xs)
     mesh.fork()
@@ -250,6 +299,14 @@ def allreduce(mesh: Mesh, xs: Sequence[torch.Tensor], op: str = "sum") -> List[t
     return out
 
 
+@_instrumented("allreduce")
+def allreduce(mesh: Mesh, xs: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
+    """``comms_t::allreduce``: every shard receives the elementwise
+    reduction (added in rank order)."""
+    return _allreduce(mesh, xs, op)
+
+
+@_instrumented("reducescatter")
 def reducescatter(mesh: Mesh, xs: Sequence[torch.Tensor], op: str = "sum") -> List[torch.Tensor]:
     """``comms_t::reducescatter``: elementwise reduce across shards, shard
     ``r`` keeps the ``r``-th equal chunk of axis 0."""
@@ -269,6 +326,7 @@ def reducescatter(mesh: Mesh, xs: Sequence[torch.Tensor], op: str = "sum") -> Li
     return out
 
 
+@_instrumented("bcast")
 def bcast(mesh: Mesh, xs: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:
     """``comms_t::bcast``: every shard receives ``root``'s block."""
     _check_parts(mesh, xs)
@@ -279,6 +337,7 @@ def bcast(mesh: Mesh, xs: Sequence[torch.Tensor], root: int = 0) -> List[torch.T
     return out
 
 
+@_instrumented("reduce")
 def reduce(mesh: Mesh, xs: Sequence[torch.Tensor], root: int = 0,
            op: str = "sum") -> List[torch.Tensor]:
     """``comms_t::reduce``: the reduction on ``root``, zeros elsewhere."""
@@ -286,11 +345,10 @@ def reduce(mesh: Mesh, xs: Sequence[torch.Tensor], root: int = 0,
     return [f if r == root else torch.zeros_like(f) for r, f in enumerate(full)]
 
 
-def ppermute(mesh: Mesh, xs: Sequence[torch.Tensor],
-             perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
-    """Point-to-point permutation (``lax.ppermute``): for each ``(src,
-    dst)`` pair shard ``dst`` receives ``src``'s block; a shard named by no
-    pair receives zeros."""
+def _ppermute(mesh: Mesh, xs: Sequence[torch.Tensor],
+              perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """:func:`ppermute` without its counters (the ring merge's hops and
+    :func:`send_recv`)."""
     _check_parts(mesh, xs)
     dsts = [d for _, d in perm]
     expects(len(set(dsts)) == len(dsts), "ppermute: a shard receives twice in %s", perm)
@@ -306,12 +364,23 @@ def ppermute(mesh: Mesh, xs: Sequence[torch.Tensor],
     return out
 
 
+@_instrumented("ppermute")
+def ppermute(mesh: Mesh, xs: Sequence[torch.Tensor],
+             perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """Point-to-point permutation (``lax.ppermute``): for each ``(src,
+    dst)`` pair shard ``dst`` receives ``src``'s block; a shard named by no
+    pair receives zeros."""
+    return _ppermute(mesh, xs, perm)
+
+
+@_instrumented("send_recv")
 def send_recv(mesh: Mesh, xs: Sequence[torch.Tensor], src: int, dst: int) -> List[torch.Tensor]:
     """One device p2p transfer (``comms_t::device_send``/``device_recv``):
     ``dst`` receives ``src``'s block, every other shard zeros."""
-    return ppermute(mesh, xs, [(src, dst)])
+    return _ppermute(mesh, xs, [(src, dst)])
 
 
+@_instrumented("barrier")
 def barrier(mesh: Mesh) -> List[torch.Tensor]:
     """``comms_t::barrier``: an allreduce of ones, so every shard stream
     waits for every other; returns the shard count on each shard."""
@@ -319,4 +388,4 @@ def barrier(mesh: Mesh) -> List[torch.Tensor]:
     for r in range(mesh.size):
         with mesh.on(r):
             ones.append(torch.ones((), dtype=torch.int32, device=mesh.devices[r]))
-    return allreduce(mesh, ones)
+    return _allreduce(mesh, ones)

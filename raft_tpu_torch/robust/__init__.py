@@ -1,7 +1,7 @@
-"""raft_tpu_torch.robust — fault injection and retries
-(``raft_tpu.robust`` counterpart; degraded sharded search and the
-fallback counters are not ported yet, and the port never falls back
-from a failed kernel: it raises ``KernelFailure``).
+"""raft_tpu_torch.robust — fault injection, retries and degraded sharded
+search (``raft_tpu.robust`` counterpart). The port never falls back from
+a failed kernel: it raises ``KernelFailure``, so ``robust/fallback.py`` and
+its ``fallbacks{algo,reason}`` counter are not ported.
 
 * :mod:`raft_tpu_torch.robust.faults` — deterministic fault-injection
   registry (env gate ``RAFT_TPU_FAULTS``, named points at the real seams,
@@ -9,8 +9,16 @@ from a failed kernel: it raises ``KernelFailure``).
 * :mod:`raft_tpu_torch.robust.retry` — ``RetryPolicy`` with exponential
   backoff + seeded jitter, ``retry_call`` / ``retrying``, and the
   ``CircuitBreaker`` state machine.
+* :mod:`raft_tpu_torch.robust.degrade` — ``sharded_search_degraded``: a
+  per-shard health probe, failed shards excluded from the merge, results
+  with a ``coverage`` fraction (``DegradedResult``).
 """
 from raft_tpu_torch.robust import faults
+from raft_tpu_torch.robust.degrade import (
+    DegradedResult,
+    probe_shard_health,
+    sharded_search_degraded,
+)
 from raft_tpu_torch.robust.retry import (
     DEFAULT_POLICY,
     CircuitBreaker,
@@ -23,9 +31,12 @@ from raft_tpu_torch.robust.retry import (
 __all__ = [
     "CircuitBreaker",
     "DEFAULT_POLICY",
+    "DegradedResult",
     "RetryError",
     "RetryPolicy",
     "faults",
+    "probe_shard_health",
     "retry_call",
     "retrying",
+    "sharded_search_degraded",
 ]

@@ -10,8 +10,13 @@ attribute load + branch when injection is off.
 
 Fault points live on the host, outside any kernel launch. The tuple
 :data:`FAULT_POINTS` is the JAX package's whole list, so a spec written
-for one package installs in the other; the port fires ``wal.append``,
-``compact.*``, ``manifest.swap`` and ``serve.dispatch`` so far.
+for one package installs in the other. The port fires every point of a
+module it has: ``pallas.pq_scan`` (before B2 and B3), ``pallas.cagra_search``
+(before each B4 batch), ``comms.ring_topk`` (``kind="scan"`` for the scan
+ring), ``comms.all_gather``, ``serialize.load``, ``sharded_ann.shard_scan``
+(the health probe), ``serve.dispatch``, ``wal.append``, ``manifest.swap``
+and ``compact.*``. An error injected before a kernel propagates: the port
+has no fallback.
 
 Usage::
 

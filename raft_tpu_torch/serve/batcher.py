@@ -79,6 +79,10 @@ class Request:
     deadline_s: Optional[float] = None
     req_id: int = dataclasses.field(default_factory=lambda: next(_req_ids))
     future: ServeFuture = dataclasses.field(default_factory=ServeFuture)
+    #: obs request trace ("" when the gate is off); t_submit_us is the
+    #: registry clock stamp the synthetic ``serve.queue`` span starts at
+    trace_id: str = ""
+    t_submit_us: float = 0.0
 
     @property
     def n_rows(self) -> int:

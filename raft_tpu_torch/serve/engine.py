@@ -13,29 +13,46 @@ processes at most one micro-batch on the caller's thread.
 
 It serves ``brute_force``, ``ivf_flat``, ``ivf_pq`` and ``cagra`` indexes,
 lists-sharded ``sharded_ivf_flat`` and ``sharded_ivf_pq_lists`` indexes over
-a :class:`~raft_tpu_torch.parallel.Mesh` (every shard healthy, coverage 1.0),
-and :class:`~raft_tpu_torch.mutable.MutableIndex` registrations
+a :class:`~raft_tpu_torch.parallel.Mesh`, and
+:class:`~raft_tpu_torch.mutable.MutableIndex` registrations
 (:meth:`~ServingEngine.register_mutable`): each micro-batch runs against one
 snapshot, the generation joins the program key and the result, and
 :meth:`~ServingEngine.step` ticks the registrations' background compactors.
-The ``serve.*`` counters and the ``serve.dispatch`` span and fault seam are
-the JAX engine's. Its planner, health probes and degraded coverage, tiering,
-SLO, request traces and replica hooks are not ported yet.
+
+A sharded batch goes through
+:func:`raft_tpu_torch.robust.degrade.sharded_search_degraded` behind a
+timed per-shard health probe (:meth:`~ServingEngine._probe_health_timed`):
+a shard that fails its probe, or answers it slower than ``slow_shard_s``,
+is left out, and the batch's results carry ``coverage < 1.0``,
+``degraded`` and ``failed_shards``; below the registration's
+``min_coverage`` the batch fails with ``ShardFailure``. :meth:`health`
+reports queue, cache, obs and per-index state. The ``serve.*`` counters
+and gauges (``serve.coverage``, ``serve.slow_shards``), the
+``serve.dispatch`` span and fault seam, and the request traces (a
+``trace_id`` a request, one ``obs.trace_scope`` a batch, a ``serve.queue``
+span a request) are the JAX engine's. Its planner, tiering, SLO and
+replica hooks are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from raft_tpu_torch import obs
-from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.core.errors import ShardFailure, expects
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.robust import faults
-from raft_tpu_torch.serve.batcher import MicroBatcher, Request, ServeFuture
+from raft_tpu_torch.serve.batcher import (
+    DeadlineExceeded,
+    MicroBatcher,
+    QueueFull,
+    Request,
+    ServeFuture,
+)
 from raft_tpu_torch.serve.bucketing import (
     ProgramCache,
     ProgramKey,
@@ -56,8 +73,10 @@ class ServeResult:
 
     distances: np.ndarray  # [m, k]
     indices: np.ndarray  # [m, k]
-    #: fraction of the index that answered (1.0: no shard is ever excluded yet)
+    #: fraction of the index that answered (1.0 on non-sharded paths)
     coverage: float = 1.0
+    degraded: bool = False
+    failed_shards: Tuple[int, ...] = ()
     time_in_queue_ms: float = 0.0
     #: arrival -> results on the host, on the engine clock
     latency_ms: float = 0.0
@@ -66,6 +85,8 @@ class ServeResult:
     #: mutable-index generation the answer was computed against (0 for
     #: immutable registrations)
     generation: int = 0
+    #: obs request trace ID ("" with the gate off)
+    trace_id: str = ""
 
     def __iter__(self):  # unpack like a plain (distances, indices)
         return iter((self.distances, self.indices))
@@ -81,6 +102,8 @@ class _Registration:
     dataset: object = None
     mesh: object = None
     axis: str = "data"
+    #: the sharded algos' coverage floor (below it a batch fails typed)
+    min_coverage: float = 0.0
     merge_mode: str = "auto"
     search_kwargs: Dict[str, object] = dataclasses.field(default_factory=dict)
     #: background compactor of a mutable registration (None when
@@ -103,12 +126,17 @@ class ServingEngine:
 
     def __init__(self, max_batch: int = 64, max_wait_ms: float = 2.0,
                  queue_capacity: int = 1024, res: Optional[Resources] = None,
-                 maintenance_interval_ms: float = 10.0):
+                 maintenance_interval_ms: float = 10.0,
+                 slow_shard_s: Optional[float] = 0.25):
         self.max_batch = int(max_batch)
         self.res = ensure_resources(res)
         self.batcher = MicroBatcher(max_batch=max_batch, max_wait_ms=max_wait_ms,
                                     capacity=queue_capacity)
         self.cache = ProgramCache()
+        #: a health probe slower than this marks the shard unhealthy: serve
+        #: degraded coverage now rather than wait out a slow shard (None: no
+        #: latency budget)
+        self.slow_shard_s = slow_shard_s
         #: floor between maintenance ticks driven from :meth:`step`
         self.maintenance_interval_ms = float(maintenance_interval_ms)
         self._last_maint = -float("inf")
@@ -118,13 +146,16 @@ class ServingEngine:
 
     def register(self, index_id: str, algo: str, index, *, params=None,
                  mode: Optional[str] = None, dataset=None, mesh=None, axis: str = "data",
-                 merge_mode: str = "auto", **search_kwargs) -> None:
+                 min_coverage: float = 0.0, merge_mode: str = "auto",
+                 **search_kwargs) -> None:
         """Register ``index`` (``algo`` = ``brute_force`` | ``ivf_flat`` |
         ``ivf_pq`` | ``cagra`` | ``sharded_ivf_flat`` |
         ``sharded_ivf_pq_lists``). ``params``/``mode``/``search_kwargs`` are
         pinned at registration; ``dataset`` enables integrated refine (for
         ``ivf_pq`` at the params' ``refine_ratio``, 8 by default). The
-        sharded algos need ``mesh`` (their lists are split over its ``axis``)
+        sharded algos need ``mesh`` (their lists are split over its
+        ``axis``), take ``min_coverage`` as their floor (below it a batch
+        fails with ``ShardFailure`` rather than return near-empty results)
         and pin ``merge_mode`` (``"auto"`` | ``"ring"`` | ``"fused_ring"`` |
         ``"gather"``)."""
         expects(algo in _DEFAULT_MODES, "unknown serving algo %r (want one of %s)",
@@ -134,8 +165,8 @@ class ServingEngine:
         self._indexes[index_id] = _Registration(
             index_id=index_id, algo=algo, index=index, params=params,
             mode=mode if mode is not None else _DEFAULT_MODES[algo],
-            dataset=dataset, mesh=mesh, axis=axis, merge_mode=merge_mode,
-            search_kwargs=dict(search_kwargs),
+            dataset=dataset, mesh=mesh, axis=axis, min_coverage=min_coverage,
+            merge_mode=merge_mode, search_kwargs=dict(search_kwargs),
         )
 
     def register_mutable(self, index_id: str, mutable, *, params=None, policy=None,
@@ -177,12 +208,13 @@ class ServingEngine:
 
     # -- submission --------------------------------------------------------
 
-    def submit(self, index_id: str, queries, k: int,
-               deadline_ms: Optional[float] = None) -> ServeFuture:
+    def submit(self, index_id: str, queries, k: int, deadline_ms: Optional[float] = None,
+               trace_id: Optional[str] = None) -> ServeFuture:
         """Enqueue one request (``queries`` [m, dim] or one [dim] row) and
         return its future. Raises ``QueueFull`` / ``DeadlineExceeded`` at
-        admission."""
-        self._reg(index_id)
+        admission. With obs enabled the request gets a trace ID (``trace_id``
+        adopts an existing one) that tags every span of its batch."""
+        reg = self._reg(index_id)
         q = np.asarray(queries, dtype=np.float32)
         if q.ndim == 1:
             q = q[None, :]
@@ -195,7 +227,21 @@ class ServingEngine:
             queries=q, k=int(k), group=(index_id, int(k)), t_arrival=now,
             deadline_s=(now + deadline_ms / 1e3) if deadline_ms is not None else None,
         )
-        self.batcher.offer(req)
+        if obs.is_enabled():
+            # minted at admission: the synthetic serve.queue span starts here
+            req.trace_id = trace_id or obs.new_trace_id()
+            req.t_submit_us = obs.registry().now_us()
+        try:
+            self.batcher.offer(req)
+        except QueueFull:
+            obs.inc("serve.rejections", reason="queue_full", index_id=index_id)
+            raise
+        except DeadlineExceeded:
+            obs.inc("serve.rejections", reason="deadline_admission", index_id=index_id)
+            raise
+        if obs.is_enabled():
+            obs.inc("serve.requests", index_id=index_id, algo=reg.algo)
+            obs.set_gauge("serve.queue_depth", self.batcher.depth_rows())
         return req.future
 
     def submit_many(self, index_id: str, queries, k: int,
@@ -241,6 +287,39 @@ class ServingEngine:
     def queue_depth(self) -> int:
         return self.batcher.depth_rows()
 
+    def health(self) -> Dict[str, object]:
+        """Health snapshot: queue and program-cache pressure, the obs gate
+        and dropped spans, and per-index registration state. ``slo`` is
+        None: SLO trackers (``set_slo``) are not ported yet, and None is what
+        the JAX engine reports for an index without one."""
+        cache_stats = self.cache.stats()
+        out: Dict[str, object] = {
+            "queue": {
+                "depth_rows": self.batcher.depth_rows(),
+                "depth_requests": self.batcher.depth_requests(),
+                "capacity": self.batcher.capacity,
+            },
+            "cache": {
+                "hits": cache_stats.hits,
+                "misses": cache_stats.misses,
+                "evictions": cache_stats.evictions,
+                "size": cache_stats.size,
+            },
+            "obs": {
+                "enabled": obs.is_enabled(),
+                "spans_dropped": obs.registry().spans_dropped,
+            },
+            "indexes": {},
+        }
+        for index_id, reg in self._indexes.items():
+            out["indexes"][index_id] = {
+                "algo": reg.algo,
+                "mode": reg.mode,
+                "generation": max(reg.last_generation, 0),
+                "slo": None,
+            }
+        return out
+
     # -- maintenance -------------------------------------------------------
 
     def maintenance_tick(self) -> None:
@@ -274,7 +353,7 @@ class ServingEngine:
             for key in keys:
                 prog = self.cache.get(key, lambda: self._build_program(reg, key.bucket, key.k))
                 zeros = torch.zeros((key.bucket, int(reg.index.dim)), device=self.res.device)
-                out = prog(zeros, snap) if snap is not None else prog(zeros)
+                out = tuple(prog(zeros, snap) if snap is not None else prog(zeros))
                 _host(out[0])  # wait for the run
         return built
 
@@ -283,6 +362,30 @@ class ServingEngine:
     def _reg(self, index_id: str) -> _Registration:
         expects(index_id in self._indexes, "no index registered as %r", index_id)
         return self._indexes[index_id]
+
+    def _probe_health_timed(self, reg: _Registration) -> Tuple[bool, ...]:
+        """Per-shard health through the ``sharded_ann.shard_scan`` fault
+        point with a latency budget: a probe that raises ``ShardFailure``
+        (``robust.shard_failures``) or takes longer than ``slow_shard_s`` on
+        the host clock (``serve.slow_shards{index_id,shard}``) marks the
+        shard unhealthy, so the batch degrades coverage instead of waiting
+        out a slow shard."""
+        mesh, axis, algo = reg.mesh, reg.axis, reg.algo.replace("sharded_", "")
+        health = []
+        for s in range(mesh.shape[axis]):
+            t0 = time.perf_counter()
+            try:
+                faults.fire("sharded_ann.shard_scan", shard=s, algo=algo, axis=axis)
+                ok = True
+            except ShardFailure:
+                obs.inc("robust.shard_failures", algo=algo, shard=str(s))
+                ok = False
+            if ok and self.slow_shard_s is not None:
+                if time.perf_counter() - t0 > self.slow_shard_s:
+                    obs.inc("serve.slow_shards", index_id=reg.index_id, shard=str(s))
+                    ok = False
+            health.append(ok)
+        return tuple(health)
 
     def _build_program(self, reg: _Registration, bucket: int, k: int) -> Callable:
         from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
@@ -299,12 +402,15 @@ class ServingEngine:
             return lambda q: cagra.search(reg.index, q, k, reg.params, query_batch=bucket,
                                           mode=reg.mode, **kw)
         if reg.algo.startswith("sharded_"):
-            from raft_tpu_torch.parallel import sharded_ann
+            # a timed health probe a dispatch; failed and slow shards are
+            # left out and the result carries its coverage
+            from raft_tpu_torch.robust.degrade import sharded_search_degraded
 
-            search = (sharded_ann.sharded_ivf_flat_search if reg.algo == "sharded_ivf_flat"
-                      else sharded_ann.sharded_ivf_pq_lists_search)
-            return lambda q: search(reg.mesh, reg.index, q, k, reg.params, axis=reg.axis,
-                                    merge_mode=reg.merge_mode, **kw)
+            algo = reg.algo.replace("sharded_", "")
+            return lambda q: sharded_search_degraded(
+                reg.mesh, reg.index, q, k, algo=algo, params=reg.params, axis=reg.axis,
+                health=self._probe_health_timed(reg), min_coverage=reg.min_coverage,
+                merge_mode=reg.merge_mode, **kw)
         algo = ivf_flat if reg.algo == "ivf_flat" else ivf_pq
         return lambda q: algo.search(reg.index, q, k, reg.params, query_batch=bucket,
                                      mode=reg.mode, dataset=reg.dataset, **kw)
@@ -330,14 +436,23 @@ class ServingEngine:
                 obs.inc("serve.generation_flips", index_id=reg.index_id)
             reg.last_generation = generation
         key = ProgramKey(reg.index_id, reg.algo, bucket, k, params_key(reg.params), generation)
+        # the batch's trace IDs ride the dispatch thread: every span below
+        # carries them; NULL_SCOPE keeps the disabled path allocation-free
+        scope = (obs.trace_scope(tuple(r.trace_id for r in batch)) if obs.is_enabled()
+                 else obs.NULL_SCOPE)
         try:
             program = self.cache.get(key, lambda: self._build_program(reg, bucket, k))
             faults.fire("serve.dispatch", index_id=reg.index_id, algo=reg.algo, bucket=bucket,
                         rows=n)
             t0 = time.perf_counter()
-            with obs.span("serve.dispatch", algo=reg.algo, bucket=bucket, rows=n, k=k) as sp:
-                dv, iv = program(padded, snap) if snap is not None else program(padded)
-                sp.sync((dv, iv))
+            with scope, obs.span("serve.dispatch", algo=reg.algo, bucket=bucket, rows=n,
+                                 k=k) as sp:
+                out = program(padded, snap) if snap is not None else program(padded)
+                dv, iv = sp.sync(tuple(out))
+            # a DegradedResult from the sharded paths carries its health
+            coverage = getattr(out, "coverage", 1.0)
+            degraded = getattr(out, "degraded", False)
+            failed = getattr(out, "failed_shards", ())
             d_np = _host(dv)
             i_np = _host(iv)
             self.batcher.note_service_time(time.perf_counter() - t0)
@@ -350,6 +465,7 @@ class ServingEngine:
             obs.inc("serve.batches", index_id=reg.index_id, algo=reg.algo)
             obs.observe("serve.batch_fill", n / bucket)
             obs.observe("serve.batch_rows", float(n))
+            obs.set_gauge("serve.coverage", float(coverage), index_id=reg.index_id)
             if snap is not None:
                 obs.set_gauge("serve.generation", float(generation), index_id=reg.index_id)
         t_done = self.batcher.now()
@@ -358,15 +474,26 @@ class ServingEngine:
             m = r.n_rows
             tiq_ms = (now - r.t_arrival) * 1e3
             if obs.is_enabled():
-                obs.observe("serve.time_in_queue_ms", tiq_ms)
+                obs.observe("serve.time_in_queue_ms", tiq_ms, trace_id=r.trace_id or None)
+                if r.trace_id:
+                    # the request's wait as a span on its own track (tid
+                    # from req_id): the first hop of its trace
+                    obs.registry().record_span(
+                        "serve.queue", r.t_submit_us, max(tiq_ms, 0.0) * 1e3,
+                        0x40000000 + (r.req_id % 0x3FFFFFFF), 0,
+                        {"index_id": reg.index_id, "rows": m}, trace=(r.trace_id,))
             r.future.set_result(ServeResult(
                 distances=d_np[off : off + m],
                 indices=i_np[off : off + m],
+                coverage=float(coverage),
+                degraded=bool(degraded),
+                failed_shards=tuple(failed),
                 time_in_queue_ms=tiq_ms,
                 latency_ms=(t_done - r.t_arrival) * 1e3,
                 bucket=bucket,
                 batch_rows=n,
                 generation=generation,
+                trace_id=r.trace_id,
             ))
             off += m
 

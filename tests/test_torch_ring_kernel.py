@@ -244,7 +244,7 @@ def test_cuda_mesh_takes_its_engine_and_never_reroutes(monkeypatch, devices, eng
     monkeypatch.setattr(trt, "_run_onecard", lambda *a: calls.append("kernel") or ((a[1], a[2]), None, None))
     monkeypatch.setattr(trt, "_run_ring", lambda *a: calls.append("schedule") or ((a[1], a[2]), None))
     mesh = types.SimpleNamespace(devices=tuple(torch.device(d) for d in devices), size=len(devices),
-                                 is_cuda=True)
+                                 is_cuda=True, axis_names=("data",))
     vs, ins = port_parts(*candidates(np.random.default_rng(6), len(devices), 5, 20, True))
     launches = (trt.fused_ring_topk.launches, trt.fused_scan_ring_topk.launches)
     trt.ring_topk(mesh, vs, ins, K)
