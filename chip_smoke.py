@@ -108,6 +108,21 @@ Phases, in order; any failure exits non-zero:
    failing one batch typed and the next served; B6 once a batch; obs off
    against on (QPS of the IVF-Flat and sharded backlogs, the span tree of
    one dispatch); ``health()``.
+10. placement and planning (:func:`tiered_phase`) on phases 3, 4 and 6's
+   indexes: ``residency_for_index`` of each against the sum of its CUDA
+   tensors' bytes (CAGRA's neighbour table included) and
+   ``torch.cuda.memory_allocated()``; phase 4's IVF-PQ registered under an
+   ``hbm_budget_bytes`` that spills its raw rows to a ``HostVectorStore``,
+   served one request at a time and as a backlog, each batch bit-equal to
+   the resident search, B2 launched, the tiered and resident backlogs'
+   QPS in turns, the fetch counters and the busy share; a ``TieredIndex``
+   over a mapped snapshot of the rows for IVF-PQ (B2) and IVF-Flat (B1),
+   bit-equal, and over the rows without read-ahead and in host RAM; the
+   ``host.fetch`` seam (latency, a failed batch typed, the next served);
+   ``plan_explain``, the planner's choice for buckets 1-128 against the
+   inline rule beside each engine's time, serving bit-equal with
+   ``RAFT_TPU_PLAN`` 0 and 1; ``smem_model`` against each kernel's
+   ``*_smem_bytes`` export with its ``ptxas`` lines.
 
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
 256, with ties, signed zeros, padding and ``inf``) against its plain
@@ -123,7 +138,7 @@ engine and of the gather merge into host and device time
 kernel's stage clock (``fused_ring_topk_split``).
 
 Each kernel's launch count is zeroed just before its path runs (phases
-3-8) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
+3-10) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
 adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
 IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 (:func:`run_phases`): ``paths`` times the IVF-Flat search paths per call
@@ -132,7 +147,8 @@ IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 phase 2's B3 checks, ``rabitq`` phase 5, ``b1`` and ``b4`` phase 2's B1
 or B4 checks and then that kernel at the main path's shapes on the 1M
 index, ``mutable`` phase 8, ``robust`` phase 9 (with ``--tree`` only the
-sharded backlog's QPS, :func:`sharded_serve_qps`); with ``--tree`` they import
+sharded backlog's QPS, :func:`sharded_serve_qps`), ``tiered`` phase 10;
+with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
 one card, old / new / new / old, the lines an older kernel cannot give
@@ -2138,8 +2154,410 @@ def robust_phase(card, res, index, pq_index, cg, X_card, Q, gt_i, k: int, sizes)
     return out
 
 
+def device_nbytes(index, device_type: str = "cuda") -> int:
+    """Sum of ``nbytes`` over the tensors on ``device_type`` reachable from ``index``'s
+    attributes (dicts, lists and objects followed), each allocation counted
+    once (a view of an allocation already seen adds nothing), leaving out
+    the per-shard copies a sharded search keeps (``_shard_cache``, phase 7's
+    mesh): what ``hbm_model.residency_for_index`` must equal less its
+    ``shard_copies``."""
+    seen, total = set(), 0
+
+    def walk(obj):
+        nonlocal total
+        if isinstance(obj, torch.Tensor):
+            key = (obj.device, obj.untyped_storage().data_ptr())
+            if obj.device.type == device_type and key not in seen:
+                seen.add(key)
+                total += obj.nbytes
+            return
+        if id(obj) in seen or isinstance(obj, (str, bytes, int, float, bool, type(None))):
+            return
+        seen.add(id(obj))
+        if isinstance(obj, dict):
+            for v in obj.values():
+                walk(v)
+        elif isinstance(obj, (list, tuple)):
+            for v in obj:
+                walk(v)
+        elif hasattr(obj, "__dict__"):
+            for name, v in vars(obj).items():
+                if name != "_shard_cache":
+                    walk(v)
+
+    walk(index)
+    return total
+
+
+def fetch_stats(snap) -> dict:
+    """The host tier's counters and fetch-time histogram (mean, and the
+    upper bound of the bucket holding the median) from an obs snapshot."""
+    c = snap["counters"]
+    out = {name: c.get(f"tiered.fetch.{name}", 0.0)
+           for name in ("rows", "bytes", "dedup_rows", "readahead_ranges")}
+    h = snap["histograms"].get("tiered.fetch_ms")
+    if h and h["count"]:
+        cum, half = np.cumsum(h["counts"]), h["count"] / 2.0
+        i = int(np.searchsorted(cum, half))
+        out.update(fetch_ms_mean=h["sum"] / h["count"], fetches=h["count"],
+                   fetch_ms_median_bucket=(h["buckets"] + [float("inf")])[i])
+    out["overlap_efficiency"] = snap["gauges"].get("tiered.overlap_efficiency")
+    return out
+
+
+def with_obs(fn):
+    """``fn()`` with obs on and an empty registry; returns ``(result, the
+    registry's snapshot)`` and leaves obs off."""
+    from raft_tpu_torch import obs
+
+    obs.registry().reset()
+    obs.enable()
+    try:
+        out = fn()
+        return out, obs.registry().as_dict()
+    finally:
+        obs.disable()
+        obs.registry().reset()
+
+
+def tiered_phase(card, res, index, pq_index, cg, X, X_card, Q, gt_i, k: int, sizes,
+                 mem: dict, ptxas: dict) -> dict:
+    """Phase 10: placement and planning at full width (:func:`run_phases`'s
+    ``tiered``), on phase 3's IVF-Flat, phase 4's IVF-PQ and phase 6's
+    CAGRA indexes and the 10,000 queries; builds nothing new.
+
+    (a) The device-memory model: ``residency_for_index`` of each index (the
+    CAGRA one after a fused search, with its table and seeds) equal to the
+    sum of ``nbytes`` of its CUDA tensors, printed beside
+    ``torch.cuda.memory_allocated()`` around its build (``mem``) and the
+    card's memory beside ``HBM_DEFAULT_BUDGET_BYTES``.
+    (b) IVF-PQ spilled: registered under an ``hbm_budget_bytes`` between its
+    scan components plus a staging slab and that plus the 1M raw rows
+    (from ``residency_for_index``), so ``raw_vectors`` goes to the host
+    (``serve.tiered_degrades`` 1); served one request at a time and as a
+    backlog, each batch ``torch.equal`` to the resident ``ivf_pq.search(...,
+    dataset=X_card)`` of the same padded batch, B2 launched; the tiered and
+    resident backlogs' QPS in turns, recall@10, the fetch counters and time,
+    the tiered backlog's device busy share.
+    (c) The mmap tier: the raw rows saved with ``HostVectorStore.save`` and
+    mapped; a ``TieredIndex`` over IVF-PQ (B2) and one over IVF-Flat (B1)
+    equal to the resident search of the same micro-batches, read-ahead
+    ranges, fetch time and overlap efficiency; the IVF-PQ one again over the
+    mapped file without read-ahead and over the rows in host RAM.
+    (d) The ``host.fetch`` seam: injected latency leaves the results alone;
+    a permanent failure fails the served batch's futures with
+    ``HostFetchError`` and the next batch is served.
+    (e) The planner: ``plan_explain`` of each served registration; for
+    buckets 1-128 its IVF-Flat and IVF-PQ choice against the inline rule,
+    each engine (probe, fused) timed at each bucket beside the choice;
+    serving with ``RAFT_TPU_PLAN=0`` and ``1`` bit-equal.
+    (f) The shared-memory model: each kernel's ``smem_model`` total at the
+    main path's shapes equal to its ``*_smem_bytes`` export, printed with
+    the ``ptxas`` register lines of its build.
+
+    Returns B1's and B2's launches in this phase."""
+    import tempfile
+
+    from raft_tpu_torch import plan
+    from raft_tpu_torch.core.errors import HostFetchError
+    from raft_tpu_torch.neighbors import ivf_common, ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import hbm_model, ivf_scan, pq_scan, smem_model
+    from raft_tpu_torch.ops import ring_topk as rt
+    from raft_tpu_torch.robust import faults
+    from raft_tpu_torch.serve import ServingEngine
+    from raft_tpu_torch.stats.recall import neighborhood_recall
+    from raft_tpu_torch.tiered import HostVectorStore, TieredIndex
+
+    t_phase = time.perf_counter()
+    n, d = X.shape
+    dev = X_card.device
+    Qt = torch.from_numpy(Q).to(dev)
+    starts = np.cumsum([0] + list(sizes[:-1]))
+    b1, b2 = ivf_scan.fused_list_topk, pq_scan.fused_pq_topk
+    b1.launches = b2.launches = 0
+    launches = {}
+
+    # (a) the device-memory model against the card
+    total = torch.cuda.get_device_properties(0).total_memory
+    emit(card, phase="tiered", metric="device_memory", total_memory=total,
+         hbm_default_budget_bytes=hbm_model.HBM_DEFAULT_BUDGET_BYTES,
+         allocated=torch.cuda.memory_allocated())
+    for name, algo, idx in (("ivf_flat", "ivf_flat", index), ("ivf_pq", "ivf_pq", pq_index),
+                            ("cagra", "cagra", cg)):
+        r = hbm_model.residency_for_index(name, algo, idx)
+        walked = device_nbytes(idx, dev.type)
+        copies = sum(c.nbytes for c in r.components if c.name == "shard_copies")
+        emit(card, phase="tiered", metric="residency", index=name, model_bytes=r.total_bytes,
+             tensor_nbytes=walked, shard_copies=copies, required_bytes=r.required_bytes,
+             components={c.name: c.nbytes for c in r.components},
+             allocated_before_build=mem.get(name, (None, None))[0],
+             allocated_after_build=mem.get(name, (None, None))[1])
+        if r.total_bytes - copies != walked:
+            raise AssertionError(f"residency_for_index({name}) {r.total_bytes - copies} B != "
+                                 f"the index's CUDA tensors' {walked} B")
+    if "neighbor_table" not in {c.name for c in hbm_model.residency_for_index(
+            "cagra", "cagra", cg).components}:
+        raise AssertionError("the CAGRA index holds no neighbour table: no fused search ran")
+
+    # (b) IVF-PQ spilled to the host tier, served both ways
+    pq_params = ivf_pq.IvfPqSearchParams(n_probes=30, fused_qt=SERVE_QT_PQ)
+    r = hbm_model.residency_for_index("sift1m_pq_tiered", "ivf_pq", pq_index, refine_rows=n)
+    _, stage_dev = hbm_model.staging_footprint(d)
+    budget = int((r.required_bytes + stage_dev + r.optional_bytes // 2) / hbm_model.HBM_HEADROOM)
+
+    def resident_search(q):
+        return ivf_pq.search(pq_index, q, k, pq_params, query_batch=q.shape[0], dataset=X_card)
+
+    res_eng = ServingEngine(max_batch=128, max_wait_ms=2.0, queue_capacity=len(Q), res=res)
+    res_eng.register("pq", "ivf_pq", pq_index, params=pq_params, dataset=X_card)
+    res_eng.warmup("pq", k)
+    t_eng = ServingEngine(max_batch=128, max_wait_ms=2.0, queue_capacity=len(Q), res=res,
+                          hbm_budget_bytes=budget)
+    _, snap = with_obs(lambda: t_eng.register("pq", "ivf_pq", pq_index, params=pq_params,
+                                              dataset=X_card))
+    degrades = snap["counters"].get('serve.tiered_degrades{algo="ivf_pq",index_id="pq"}', 0.0)
+    placement = t_eng.placement
+    emit(card, phase="tiered", metric="placement", hbm_budget_bytes=budget,
+         required_bytes=r.required_bytes, raw_vectors_bytes=r.optional_bytes,
+         staging_device_bytes=placement.staging_device_bytes,
+         staging_host_bytes=placement.staging_host_bytes,
+         raw_vectors_tier=placement.tier("pq", "raw_vectors"), tiered_degrades=degrades,
+         table=placement.table().splitlines())
+    if placement.tier("pq", "raw_vectors") != "host" or degrades != 1.0:
+        raise AssertionError(f"the budget {budget} B did not spill raw_vectors to the host "
+                             f"({placement.tier('pq', 'raw_vectors')}, degrades {degrades})")
+    t_eng.warmup("pq", k)
+    b2.launches = 0
+    one = []
+    t0 = time.perf_counter()
+    for s, m in zip(starts, sizes):
+        fut = t_eng.submit("pq", Q[s : s + m], k)
+        t_eng.step(force=True)
+        one.append(fut.result())
+    one_s = time.perf_counter() - t0
+    for r_, s, m in zip(one, starts, sizes):
+        padded = torch.zeros((r_.bucket, d), device=dev)
+        padded[:m] = Qt[s : s + m]
+        dv, iv = resident_search(padded)
+        if not (np.array_equal(r_.indices, iv[:m].cpu().numpy())
+                and np.array_equal(r_.distances.view(np.int32),
+                                   dv[:m].cpu().numpy().view(np.int32))):
+            raise AssertionError("a tiered request served alone is not bit-equal to the "
+                                 "resident search of its padded batch")
+    qps = {"tiered_one_client": len(Q) / one_s}
+    b2_tiered = b2.launches
+    runs = {}
+    for which, eng in (("resident", res_eng), ("tiered", t_eng), ("tiered", t_eng),
+                       ("resident", res_eng)):
+        before = b2.launches
+        futs, secs = backlog(eng, "pq", Q, sizes, k)
+        runs.setdefault(which, []).append(len(Q) / secs)
+        if which == "tiered":
+            b2_tiered += b2.launches - before
+            results = [f.result() for f in futs]
+    batches = check_served_batches("tiered IVF-PQ backlog", Q, sizes, results, resident_search,
+                                   dev)
+    (futs, _), snap = with_obs(lambda: backlog(t_eng, "pq", Q, sizes, k))
+    tiered_results = [f.result() for f in futs]
+    check_served_batches("tiered IVF-PQ backlog (obs on)", Q, sizes, tiered_results,
+                         resident_search, dev)
+    ids, _, _ = served(tiered_results, n)
+    busy = profile_backlog(card, t_eng, "pq", Q, starts, sizes, k, None, phase="tiered")
+    emit(card, phase="tiered", metric="tiered_serve", one_client_qps=qps["tiered_one_client"],
+         backlog_qps_resident=runs["resident"], backlog_qps_tiered=runs["tiered"],
+         tiered_over_resident=float(np.median(runs["tiered"]) / np.median(runs["resident"])),
+         recall=neighborhood_recall(torch.from_numpy(ids), gt_i),
+         batches_bit_equal=batches, requests_bit_equal=len(one), b2_launches=b2_tiered,
+         busy_share=busy, **fetch_stats(snap))
+    if b2_tiered <= 0:
+        raise AssertionError("tiered IVF-PQ serving never launched fused_pq_topk")
+    launches["fused_pq_topk"] = b2_tiered
+
+    # (c) the mmap tier under a TieredIndex, IVF-PQ (B2) and IVF-Flat (B1)
+    mb = 1024
+    flat_params = ivf_flat.IvfFlatSearchParams(n_probes=20, fused_qt=SERVE_QT, refine_ratio=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sift1m_vectors.bin")
+        t0 = time.perf_counter()
+        HostVectorStore.save(path, X)
+        save_s = time.perf_counter() - t0
+        store = HostVectorStore.open(path, mmap=True)
+        for name, algo, idx, sp, search, kernel in (
+                ("ivf_pq", "ivf_pq", pq_index, pq_params, ivf_pq.search, b2),
+                ("ivf_flat", "ivf_flat", index, flat_params, ivf_flat.search, b1)):
+            ti = TieredIndex(algo, idx, store, refine_ratio=8, micro_batch=mb, search_params=sp)
+            kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (got, snap) = with_obs(lambda: ti.search(Qt, k))
+            torch.cuda.synchronize()
+            tiered_s = time.perf_counter() - t0
+            kl = kernel.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = [search(idx, Qt[s : s + mb], k, sp, query_batch=mb, dataset=X_card)
+                    for s in range(0, len(Q), mb)]
+            torch.cuda.synchronize()
+            resident_s = time.perf_counter() - t0
+            want = (torch.cat([w[0] for w in want]), torch.cat([w[1] for w in want]))
+            if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+                raise AssertionError(f"the mmap TieredIndex over {name} is not bit-equal to the "
+                                     "resident search of the same micro-batches")
+            if kl <= 0:
+                raise AssertionError(f"the TieredIndex over {name} never launched its kernel")
+            launches[kernel.__name__] = launches.get(kernel.__name__, 0) + kl
+            emit(card, phase="tiered", metric="tiered_index_mmap", index=name, micro_batch=mb,
+                 queries=len(Q), seconds=tiered_s, resident_seconds=resident_s,
+                 qps=len(Q) / tiered_s, resident_qps=len(Q) / resident_s, launches=kl,
+                 recall=neighborhood_recall(got[1], gt_i), bit_equal=True, save_s=save_s,
+                 file_bytes=os.path.getsize(path), **fetch_stats(snap))
+            if name == "ivf_pq":
+                want_pq = want
+        # the same IVF-PQ search over the mapped file without read-ahead
+        # hints, and over the rows in host RAM
+        counts = (b1.launches, b2.launches)
+        for label, other in (("mmap_no_readahead", HostVectorStore.open(path, readahead=False)),
+                             ("host_ram", HostVectorStore(X))):
+            ti = TieredIndex("ivf_pq", pq_index, other, refine_ratio=8, micro_batch=mb,
+                             search_params=pq_params)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, snap = with_obs(lambda: ti.search(Qt, k))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            if not (torch.equal(got[1], want_pq[1]) and torch.equal(got[0], want_pq[0])):
+                raise AssertionError(f"the TieredIndex over IVF-PQ ({label}) is not bit-equal to "
+                                     "the resident search")
+            emit(card, phase="tiered", metric="tiered_index_store", index="ivf_pq", store=label,
+                 micro_batch=mb, queries=len(Q), seconds=secs, qps=len(Q) / secs,
+                 bit_equal=True, **fetch_stats(snap))
+        b1.launches, b2.launches = counts
+        del store, other, ti
+
+    # (d) the host.fetch seam: latency, then a permanent failure in serving
+    ti = TieredIndex("ivf_pq", pq_index, HostVectorStore(X), refine_ratio=8, micro_batch=mb,
+                     search_params=pq_params)
+    want = ti.search(Qt[:2048], k)
+    with faults.injected("host.fetch", latency_s=0.005):
+        got = ti.search(Qt[:2048], k)
+    if not (torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])):
+        raise AssertionError("injected host.fetch latency changed the tiered results")
+    with faults.injected("host.fetch", error=OSError("host tier lost")):
+        futs = [t_eng.submit("pq", Q[s : s + m], k) for s, m in zip(starts[:4], sizes[:4])]
+        t_eng.step(force=True)
+    failed = [f for f in futs if f.done() and isinstance(f.exception(), HostFetchError)]
+    t_eng.run_until_idle()
+    after = [f.result() for f in futs if f not in failed]
+    fut = t_eng.submit("pq", Q[:37], k)
+    t_eng.run_until_idle()
+    nxt = fut.result()
+    padded = torch.zeros((nxt.bucket, d), device=dev)
+    padded[:37] = Qt[:37]
+    dv, iv = resident_search(padded)
+    emit(card, phase="tiered", metric="host_fetch_seam", latency_results_equal=True,
+         failed_futures=len(failed), served_after=len(after) + 1)
+    if not failed or not np.array_equal(nxt.indices, iv[:37].cpu().numpy()):
+        raise AssertionError("a permanent host.fetch failure did not fail its batch with "
+                             "HostFetchError, or the next batch was not served")
+
+    # (e) the planner: explain, the inline rule, each engine's time a bucket
+    for label, eng in (("resident", res_eng), ("tiered", t_eng)):
+        emit(card, phase="tiered", metric="plan_explain", registration=label,
+             bucket_modes=dict(eng._indexes["pq"].plan.bucket_modes),
+             explain=eng.plan_explain("pq").splitlines())
+    flat_serve = dataclasses.replace(flat_params, refine_ratio=1)
+    per_bucket = []
+    for algo, idx, sp, search, fused_ok in (
+            ("ivf_flat", index, flat_serve, ivf_flat.search, True),
+            ("ivf_pq", pq_index, pq_params, ivf_pq.search, True)):
+        for b in bucket_sizes_to(128):
+            os.environ["RAFT_TPU_PLAN"] = "1"
+            planned = ivf_common.auto_search_mode(idx.device, b, fused_ok, algo=algo)
+            os.environ["RAFT_TPU_PLAN"] = "0"
+            inline = ivf_common.auto_search_mode(idx.device, b, fused_ok, algo=algo)
+            os.environ.pop("RAFT_TPU_PLAN")
+            if planned != inline:
+                raise AssertionError(f"{algo} at {b} queries: the planner chose {planned}, the "
+                                     f"inline rule {inline}")
+            dataset = X_card if algo == "ivf_pq" else None
+            counts = (b1.launches, b2.launches)
+            ms = {m: cuda_ms(lambda: search(idx, Qt[:b], k, sp, query_batch=b, mode=m,
+                                            dataset=dataset), reps=5) for m in ("probe", "fused")}
+            b1.launches, b2.launches = counts
+            p = plan.plan_search_mode(algo, b, on_cuda=plan.on_cuda(idx.device), fused_ok=True,
+                                      scan_ok=False)
+            per_bucket.append(dict(algo=algo, bucket=b, choice=planned, probe_ms=ms["probe"],
+                                   fused_ms=ms["fused"],
+                                   cost_cu={c.name: c.cost for c in p.candidates if c.eligible}))
+    emit(card, phase="tiered", metric="plan_bucket_times", rows=per_bucket)
+    gate = {}
+    for g in ("1", "0"):
+        os.environ["RAFT_TPU_PLAN"] = g
+        outs = []
+        for algo, idx, sp, ds in (("ivf_flat", index, flat_serve, None),
+                                  ("ivf_pq", pq_index, pq_params, X_card)):
+            eng = ServingEngine(max_batch=128, max_wait_ms=2.0, queue_capacity=len(Q), res=res)
+            eng.register("g", algo, idx, params=sp, dataset=ds)
+            for s, m in zip(starts[:40], sizes[:40]):  # requests served alone: every bucket
+                fut = eng.submit("g", Q[s : s + m], k)
+                eng.step(force=True)
+                outs.append(fut.result())
+            futs, _ = backlog(eng, "g", Q[:2048], sizes_to(sizes, 2048), k)
+            outs += [f.result() for f in futs]
+        gate[g] = outs
+    os.environ.pop("RAFT_TPU_PLAN")
+    same = all(np.array_equal(a.indices, b.indices)
+               and np.array_equal(a.distances.view(np.int32), b.distances.view(np.int32))
+               for a, b in zip(gate["1"], gate["0"]))
+    emit(card, phase="tiered", metric="plan_gate_bit_equal", value=same, requests=len(gate["1"]))
+    if not same or len(gate["1"]) != len(gate["0"]):
+        raise AssertionError("serving with RAFT_TPU_PLAN=1 and =0 is not bit-equal")
+
+    # (f) the shared-memory model against each kernel's export
+    libs = {"ivf_scan_smem_bytes": ivf_scan, "pq_scan_smem_bytes": pq_scan,
+            "ring_onecard_smem_bytes": rt}
+    from raft_tpu_torch.ops import cagra_search, rabitq_scan
+
+    libs.update(rabitq_scan_smem_bytes=rabitq_scan, cagra_search_smem_bytes=cagra_search)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    source = {"fused_list_topk": "fused_list_topk", "fused_pq_topk": "fused_pq_topk",
+              "fused_rabitq_topk": "fused_rabitq_topk", "cagra_fused_search": "cagra_fused_search",
+              "hop_merge": "ring_topk", "fused_ring_topk": "ring_topk",
+              "fused_scan_ring_topk": "ring_topk"}
+    for model, export in smem_model.main_path_residencies(sms=sms):
+        lib = libs[export[0]].build_kernel()[0]
+        got = getattr(lib, export[0])(*export[1:])
+        emit(card, phase="tiered", metric="smem_model", kernel=model.kernel,
+             model_bytes=model.total_bytes, export_bytes=got, export=list(export),
+             ctas_per_sm_by_smem=model.ctas_per_sm,
+             buffers={r.name: r.nbytes for r in model.residents},
+             ptxas=ptxas.get(source[model.kernel], []))
+        if got != model.total_bytes:
+            raise AssertionError(f"{model.kernel}: smem_model counts {model.total_bytes} B, the "
+                                 f"kernel's {export[0]} {got}")
+    emit(card, phase="tiered", metric="phase_s", value=time.perf_counter() - t_phase,
+         launches=launches)
+    return launches
+
+
+def bucket_sizes_to(top: int) -> list:
+    """1, 2, 4, ... ``top``."""
+    return [1 << i for i in range(top.bit_length())]
+
+
+def sizes_to(sizes, rows: int) -> list:
+    """The leading request sizes covering ``rows`` rows (the last cut)."""
+    out = []
+    for m in sizes:
+        if sum(out) >= rows:
+            break
+        out.append(min(m, rows - sum(out)))
+    return out
+
+
 #: the parts ``--phases`` runs alone
-PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable", "robust")
+PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable", "robust",
+               "tiered")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
@@ -2158,8 +2576,10 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
     (:func:`mutable_phase`) on phase 3's data; ``robust`` last: phase 9
     (:func:`robust_phase`) on phase 3's data and indexes built as phases 3,
     4 and 6 build them, or with ``compare`` (``--tree`` given) only the
-    sharded backlog's QPS (:func:`sharded_serve_qps`). Each builds the
-    kernels it launches first. ``tree`` is the tree whose
+    sharded backlog's QPS (:func:`sharded_serve_qps`); ``tiered``: phase 10
+    (:func:`tiered_phase`) on phase 3's data and the indexes of phases 3, 4
+    and 6 (the CAGRA one after a fused search). Each builds the kernels it
+    launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
@@ -2280,6 +2700,46 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
                                                         graph_degree=16, build_algo="ivf_pq"),
                          res=res, pq_index=pq_index)
         robust_phase(card, res, index, pq_index, cg, X_card, Q, gt_i, 10, sizes)
+    if "tiered" in parts:
+        from raft_tpu_torch.neighbors import cagra
+        from raft_tpu_torch.ops import cagra_search, pq_scan
+
+        mods = {"fused_list_topk": ivf_scan, "fused_pq_topk": pq_scan,
+                "fused_rabitq_topk": rabitq_scan, "cagra_fused_search": cagra_search,
+                "ring_topk": rt}
+        with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
+            builds = {name: ex.submit(mod.build_kernel, True) for name, mod in mods.items()}
+            ptxas = {}
+            for name, f in builds.items():
+                _, build_s, log = f.result()
+                ptxas[name] = [line for line in log.splitlines()
+                               if "registers" in line or "spill" in line]
+                emit(card, phase="build", kernel=name, build_s=build_s)
+        res = Resources(device="cuda", seed=seed)
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
+        gen = Clustered(rng, 128, 4096)
+        X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        sizes = request_sizes(rng, Q.shape[0])
+        mem = {"ivf_flat": [torch.cuda.memory_allocated()]}
+        index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024), res=res)
+        mem["ivf_flat"].append(torch.cuda.memory_allocated())
+        _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
+        X_card = torch.from_numpy(X).cuda()
+        mem["ivf_pq"] = [torch.cuda.memory_allocated()]
+        pq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024), res=res)
+        mem["ivf_pq"].append(torch.cuda.memory_allocated())
+        mem["cagra"] = [torch.cuda.memory_allocated()]
+        cg = cagra.build(X_card, cagra.CagraIndexParams(intermediate_graph_degree=32,
+                                                        graph_degree=16, build_algo="ivf_pq"),
+                         res=res, pq_index=pq_index)
+        mem["cagra"].append(torch.cuda.memory_allocated())
+        # phase 6's fused search: the table and seeds it keeps on the index
+        cagra.search(cg, torch.from_numpy(Q[:128]).cuda(), 10, cagra.CagraSearchParams(
+            itopk_size=128, search_width=8, dedup="post", init_sample=SERVE_INIT_SAMPLE),
+            mode="fused")
+        tiered_phase(card, res, index, pq_index, cg, X, X_card, Q, gt_i, 10, sizes, mem, ptxas)
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -2411,9 +2871,11 @@ def main() -> int:
     X = gen.sample(n)
     Q = gen.sample(nq)
     torch.cuda.synchronize()
+    mem = {"ivf_flat": [torch.cuda.memory_allocated()]}
     t0 = time.perf_counter()
     index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024), res=res)
     torch.cuda.synchronize()
+    mem["ivf_flat"].append(torch.cuda.memory_allocated())
     emit(card, phase="main", metric="build_s", value=time.perf_counter() - t0, n=n, d=d,
          n_lists=index.n_lists, max_list=index.max_list)
     _, gt_i = brute_force.knn(X, Q, k, metric="sqeuclidean", res=res)
@@ -2479,9 +2941,11 @@ def main() -> int:
     # ---- phase 4: IVF-PQ at full width ------------------------------------
     X_card = torch.from_numpy(X).cuda()
     torch.cuda.synchronize()
+    mem["ivf_pq"] = [torch.cuda.memory_allocated()]
     t0 = time.perf_counter()
     pq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024), res=res)
     torch.cuda.synchronize()
+    mem["ivf_pq"].append(torch.cuda.memory_allocated())
     emit(card, phase="ivf_pq", metric="build_s", value=time.perf_counter() - t0, n=n, d=d,
          n_lists=pq_index.n_lists, max_list=pq_index.max_list, pq_dim=pq_index.pq_dim,
          code_bytes_per_row=int(pq_index.codes.shape[2]), nibble=pq_index.additive)
@@ -2565,9 +3029,11 @@ def main() -> int:
     # ---- phase 6: CAGRA at full width --------------------------------------
     cagra_search.cagra_fused_search.launches = 0
     pq_scan.fused_pq_topk.launches = 0
+    mem["cagra"] = [torch.cuda.memory_allocated()]
     cg, build_s = timed_build(lambda: cagra.build(
         X_card, cagra.CagraIndexParams(intermediate_graph_degree=32, graph_degree=16,
                                        build_algo="ivf_pq"), res=res, pq_index=pq_index))
+    mem["cagra"].append(torch.cuda.memory_allocated())
     build_b2 = pq_scan.fused_pq_topk.launches
     emit(card, phase="cagra", metric="build_s", value=build_s, stages_s=cg.build_seconds,
          graph_degree=cg.graph_degree, self_search_b2_launches=build_b2,
@@ -2816,6 +3282,12 @@ def main() -> int:
     # ---- phase 9: robustness in serving --------------------------------------
     robust = robust_phase(card, res, index, pq_index, cg, X_card, Q, gt_i, k, sizes)
 
+    # ---- phase 10: placement and planning ------------------------------------
+    ptxas = {name: [line for line in log.splitlines() if "registers" in line or "spill" in line]
+             for name, (_, _, log) in built.items()}
+    tiered = tiered_phase(card, res, index, pq_index, cg, X, X_card, Q, gt_i, k, sizes, mem,
+                          ptxas)
+
     rows = []
     for name, src, line, launches, t in (
             ("fused_list_topk", "ivf_scan.cu", "raft_tpu/ops/pallas/ivf_scan.py:321", flat_launches, b1),
@@ -2837,6 +3309,8 @@ def main() -> int:
         if name == "fused_list_topk":  # phase 8's served run: main and delta scans
             rows[-1].update(launches_mutable=mutable["launches"],
                             launches_mutable_delta=mutable["serve"]["b1_launches_delta"])
+        if name in tiered:  # phase 10: the host tier's scans
+            rows[-1]["launches_tiered"] = tiered[name]
         if name == "hop_merge":  # on one card B5's folds run inside B6's and B7's launches
             rows[-1]["folds_inside_rings"] = folds
         if name == "fused_ring_topk":  # phase 9's backlog with shard 2 down

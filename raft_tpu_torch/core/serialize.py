@@ -176,6 +176,69 @@ def load_stream(stream: BinaryIO, kind: str) -> Tuple[int, BinaryIO]:
     return index_version, io.BytesIO(payload)
 
 
+def open_payload(path: str, kind: str, *, verify_crc: bool = True) -> Tuple[int, int, int]:
+    """Locate the v4 payload inside the file at ``path`` without holding
+    it in memory: returns ``(index_version, payload_offset, length)``.
+
+    The lazy complement of :func:`load_stream` for :func:`mmap_array_at`:
+    the header is parsed, the ``serialize.load`` seam fires, the CRC is
+    verified by streaming the payload in 4 MiB chunks (skipped with
+    ``verify_crc=False``) and the file is closed again. v<=3 streams have
+    no framed payload and are rejected."""
+    with open(path, "rb") as f:
+        version = check_header(f, kind)
+        faults.fire("serialize.load", kind=kind)
+        if version < 4:
+            raise ValueError(f"mmap loading needs a v4 envelope; {path!r} is v{version}")
+        index_version = int(deserialize_scalar(f, "uint32"))
+        length = int(deserialize_scalar(f, "uint64"))
+        crc = int(deserialize_scalar(f, "uint32"))
+        offset = f.tell()
+        if verify_crc:
+            actual = 0
+            remaining = length
+            while remaining:
+                chunk = f.read(min(remaining, 4 << 20))
+                if not chunk:
+                    raise CorruptIndexError(
+                        f"truncated {kind} snapshot: payload is {length - remaining} of "
+                        f"{length} bytes",
+                        offset=offset,
+                    )
+                actual = zlib.crc32(chunk, actual)
+                remaining -= len(chunk)
+            if actual & 0xFFFFFFFF != crc:
+                raise CorruptIndexError(
+                    f"{kind} snapshot failed its CRC32 check",
+                    offset=offset, expected_crc=crc, actual_crc=actual & 0xFFFFFFFF,
+                )
+        return index_version, offset, length
+
+
+def mmap_array_at(path: str, offset: int) -> Tuple[np.ndarray, int, str]:
+    """Map the :func:`serialize_array` frame at ``offset`` in ``path``
+    without copying it into RAM: returns ``(array, next_offset,
+    dtype_name)``. The array is a read-only ``np.memmap`` over the npy
+    data bytes, paged in as a gather touches its rows; a bfloat16 frame
+    stays its uint16 bit view (numpy has no bfloat16), which
+    ``dtype_name`` names, so that :func:`from_numpy` or a
+    ``torch.bfloat16`` view restores it."""
+    with open(path, "rb") as f:
+        f.seek(offset)
+        name = deserialize_string(f)
+        version = np.lib.format.read_magic(f)
+        if version == (1, 0):
+            shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+        else:
+            shape, fortran, dtype = np.lib.format.read_array_header_2_0(f)
+        if fortran:
+            raise ValueError("mmap loading supports C-order arrays only")
+        data_offset = f.tell()
+    arr = np.memmap(path, dtype=dtype, mode="r", offset=data_offset, shape=shape)
+    next_offset = data_offset + int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+    return arr, next_offset, name
+
+
 def atomic_write(path: str, writer: Callable[[BinaryIO], None]) -> str:
     """Run ``writer`` against a temp file, fsync, then rename onto
     ``path`` — a torn write can never be observed at ``path``."""

@@ -151,7 +151,9 @@ def _delta_fused_eligible(metric, cap: int, k: int) -> bool:
 def _delta_route(mode: str, metric, cap: int, k: int, device=None) -> str:
     """Resolve ``delta_mode`` to the scan that actually runs. ``auto``
     takes the kernel when eligible and the delta lies on a CUDA
-    ``device`` (the JAX package takes it only on a TPU)."""
+    ``device`` (the JAX package takes it only on a TPU), through
+    :func:`raft_tpu_torch.plan.plan_delta_mode` when the planner's gate is
+    on."""
     expects(mode in DELTA_MODES, "delta_mode must be %s, got %r",
             "|".join(DELTA_MODES), mode)
     if mode == "exact":
@@ -165,6 +167,11 @@ def _delta_route(mode: str, metric, cap: int, k: int, device=None) -> str:
             _DELTA_FUSED_MAX_ROWS * _DELTA_FUSED_MAX_BANKS,
         )
         return "fused"
+    from raft_tpu_torch import plan
+
+    if plan.is_enabled():
+        on_cuda = device is not None and plan.on_cuda(device)
+        return plan.plan_delta_mode(eligible=eligible, on_cuda=on_cuda).choice
     on_cuda = device is not None and torch.device(device).type == "cuda"
     return "fused" if eligible and on_cuda else "exact"
 

@@ -114,14 +114,14 @@ def search(
     dev = index.dataset.device
     queries = ser.as_tensor(queries, dev)
     if dataset is not None and refine_ratio > 1:
-        from raft_tpu_torch.neighbors.refine import check_refine_dataset, refine
+        from raft_tpu_torch.neighbors.refine import check_refine_dataset, refine, refine_source
 
         check_refine_dataset(dataset, index.size, "brute_force")
         kk = min(k * refine_ratio, index.size)
         _, cand = search(index, queries, kk, prefilter=prefilter, query_batch=query_batch,
                          dataset_tile=dataset_tile, res=res)
         with obs.span("brute_force.search.refine", k=k, candidates=int(kk)) as sp:
-            return sp.sync(refine(ser.as_tensor(dataset, dev), queries, cand, k,
+            return sp.sync(refine(refine_source(dataset, dev), queries, cand, k,
                                   metric=index.metric, metric_arg=index.metric_arg))
     if not obs.is_enabled():
         return _search_dispatch(index, queries, k, prefilter, query_batch, dataset_tile, res)

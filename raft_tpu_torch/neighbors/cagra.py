@@ -554,6 +554,19 @@ def fused_eligible(index: CagraIndex, params: CagraSearchParams,
     )
 
 
+def auto_mode(device, nq: int, eligible: bool) -> str:
+    """What ``mode="auto"`` runs for ``nq`` queries on an index on
+    ``device``: kernel B4 on a CUDA index when ``eligible``
+    (:func:`fused_eligible`), else ``"xla"``. With the planner's gate on
+    :func:`raft_tpu_torch.plan.plan_cagra_mode` decides, and chooses the
+    same."""
+    from raft_tpu_torch import plan
+
+    if plan.is_enabled():
+        return plan.plan_cagra_mode(nq, on_cuda=plan.on_cuda(device), fused_ok=eligible).choice
+    return "fused" if torch.device(device).type == "cuda" and eligible else "xla"
+
+
 def _fused_table(index: CagraIndex, dtype) -> torch.Tensor:
     """Build (once) and cache the ``[n, deg, d]`` neighbour table on the
     index (a plain attribute: a rebuilt index starts without one)."""
@@ -665,7 +678,7 @@ def _search_dispatch(index: CagraIndex, queries, k: int, params: Optional[CagraS
         expects(prefilter.size >= index.size, "prefilter smaller than index")
     filter_bits = prefilter.bits.to(dev) if prefilter is not None else None
     if mode == "auto":
-        mode = "fused" if dev.type == "cuda" and fused_eligible(index, params, prefilter) else "xla"
+        mode = auto_mode(dev, queries.shape[0], fused_eligible(index, params, prefilter))
     expects(mode in ("xla", "fused"), "mode must be auto|xla|fused, got %r", mode)
     if mode == "fused":
         expects(fused_eligible(index, params, prefilter),

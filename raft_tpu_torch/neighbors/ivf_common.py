@@ -28,18 +28,37 @@ def scan_mode_not_ported(algo: str) -> None:
          "mode='fused', 'probe' or 'auto'", algo)
 
 
-def auto_search_mode(device: torch.device, nq: int, fused_ok: bool, scan_ok: bool = True) -> str:
+def auto_search_mode(device: torch.device, nq: int, fused_ok: bool, scan_ok: bool = True,
+                     algo: str = "ivf") -> str:
     """What ``mode="auto"`` runs for a batch of ``nq`` queries on an index
-    on ``device``: from 128 queries, the fused kernel on a CUDA index (when
+    on ``device``. With the planner's gate on (:func:`raft_tpu_torch.plan.
+    is_enabled`) :func:`~raft_tpu_torch.plan.plan_search_mode` decides
+    (``algo`` names the decision), and it chooses what the inline rule
+    does: from 128 queries, the fused kernel on a CUDA index (when
     ``fused_ok``) and elsewhere the dense scan, as the JAX package takes
     ``scan`` off a TPU (``raft_tpu/plan/planner.py:112-135``); the probe
     path below 128 queries, on a CUDA index the kernel cannot take, and
     where there is no scan (``scan_ok=False``)."""
+    from raft_tpu_torch import plan
+
+    device = torch.device(device)
+    if plan.is_enabled():
+        auto_scan_ok, reason = auto_scan(device, scan_ok)
+        return plan.plan_search_mode(algo, nq, on_cuda=plan.on_cuda(device), fused_ok=fused_ok,
+                                     scan_ok=auto_scan_ok, scan_reason=reason).choice
     if nq < 128:
         return "probe"
     if device.type == "cuda":
         return "fused" if fused_ok else "probe"
     return "scan" if scan_ok else "probe"
+
+
+def auto_scan(device, scan_ok: bool = True) -> Tuple[bool, str]:
+    """Whether ``auto`` may take the dense scan on an index on ``device``
+    (``scan_ok``: the index has one), and the planner's reason when not."""
+    if torch.device(device).type == "cuda":
+        return False, "auto leaves the dense scan to mode='scan' on a CUDA index"
+    return scan_ok, "no dense scan for this index (RaBitQ's comes with queue A5)"
 
 
 #: candidates (rows x columns) one merge of :func:`merge_probes` takes at most

@@ -438,7 +438,7 @@ def search(
     expects(queries.ndim == 2 and queries.shape[1] == index.dim, "bad query shape")
     expects(k >= 1, "k must be >= 1")
     if dataset is not None and params.refine_ratio > 1:
-        from raft_tpu_torch.neighbors.refine import check_refine_dataset, refine
+        from raft_tpu_torch.neighbors.refine import check_refine_dataset, refine, refine_source
 
         check_refine_dataset(dataset, index.size, "ivf_flat")
         inner = dataclasses.replace(params, refine_ratio=1)
@@ -448,7 +448,7 @@ def search(
         if obs.is_enabled():
             obs.observe("ivf_flat.search.refine_candidates_per_query", float(kk))
         with obs.span("ivf_flat.search.refine", k=k, candidates=int(kk)) as sp:
-            return sp.sync(refine(ser.as_tensor(dataset, dev), queries, cand, k,
+            return sp.sync(refine(refine_source(dataset, dev), queries, cand, k,
                                   metric=index.metric))
     if prefilter is not None:
         expects(prefilter.size >= index.size, "prefilter smaller than index")
@@ -456,7 +456,8 @@ def search(
     n_probes = min(params.n_probes, index.n_lists)
     nq = queries.shape[0]
     if mode == "auto":
-        mode = ivf_common.auto_search_mode(dev, nq, supported_metric(index.metric))
+        mode = ivf_common.auto_search_mode(dev, nq, supported_metric(index.metric),
+                                           algo="ivf_flat")
     expects(mode in ("scan", "probe", "fused"), "mode must be auto|scan|probe|fused, got %r",
             mode)
     if mode == "scan":

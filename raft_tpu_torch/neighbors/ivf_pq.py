@@ -496,13 +496,20 @@ def _rabitq_encode_all(ds_f32, labels, centers, rotation, centers_rot, metric, c
 
 
 def _resolve_kind(params: IvfPqIndexParams) -> str:
-    """``pq_kind`` with ``"auto"`` resolved, after the JAX package's checks."""
+    """``pq_kind`` with ``"auto"`` resolved (through
+    :func:`raft_tpu_torch.plan.plan_pq_kind` when the planner's gate is on),
+    after the JAX package's checks."""
     expects(params.codebook_kind in (PER_SUBSPACE, PER_CLUSTER), "bad codebook_kind")
     expects(params.pq_kind in ("auto", "kmeans", "nibble", "rabitq"),
             "pq_kind must be auto|kmeans|nibble|rabitq")
     kind = params.pq_kind
     if kind == "auto":
-        if params.pq_bits == 1:
+        from raft_tpu_torch import plan
+
+        if plan.is_enabled():
+            kind = plan.plan_pq_kind(params.pq_bits, params.codebook_kind == PER_SUBSPACE,
+                                     pq_dim=int(params.pq_dim or 16)).choice
+        elif params.pq_bits == 1:
             kind = "rabitq"
         elif params.pq_bits == 8 and params.codebook_kind == PER_SUBSPACE:
             kind = "nibble"
@@ -994,7 +1001,7 @@ def _search_dispatch(index: IvfPqIndex, queries, k: int, params: Optional[IvfPqS
     expects(queries.ndim == 2 and queries.shape[1] == index.dim, "bad query shape")
     expects(k >= 1, "k must be >= 1")
     if dataset is not None and params.refine_ratio > 1:
-        from raft_tpu_torch.neighbors.refine import check_refine_dataset, refine
+        from raft_tpu_torch.neighbors.refine import check_refine_dataset, refine, refine_source
 
         check_refine_dataset(dataset, index.size, "ivf_pq")
         inner = dataclasses.replace(params, refine_ratio=1)
@@ -1004,7 +1011,7 @@ def _search_dispatch(index: IvfPqIndex, queries, k: int, params: Optional[IvfPqS
         if obs.is_enabled():
             obs.observe("ivf_pq.search.refine_candidates_per_query", float(kk))
         with obs.span("ivf_pq.search.refine", k=k, candidates=int(kk)) as sp:
-            return sp.sync(refine(ser.as_tensor(dataset, dev), queries, cand, k,
+            return sp.sync(refine(refine_source(dataset, dev), queries, cand, k,
                                   metric=index.metric))
     if prefilter is not None:
         expects(prefilter.size >= index.size, "prefilter smaller than index")
@@ -1018,7 +1025,8 @@ def _search_dispatch(index: IvfPqIndex, queries, k: int, params: Optional[IvfPqS
                 and index.metric in _SUPPORTED)
     wants_f32_lut = params.lut_dtype == torch.float32
     if mode == "auto":
-        mode = ivf_common.auto_search_mode(dev, nq, fused_ok and not wants_f32_lut)
+        mode = ivf_common.auto_search_mode(dev, nq, fused_ok and not wants_f32_lut,
+                                           algo="ivf_pq")
     expects(mode in ("scan", "probe", "fused"), "mode must be auto|scan|probe|fused, got %r",
             mode)
     if obs.is_enabled():
@@ -1090,7 +1098,8 @@ def _rabitq_modes(index: IvfPqIndex, queries, k: int, params: IvfPqSearchParams,
         ivf_common.scan_mode_not_ported("ivf_pq (rabitq)")
     if mode == "auto":
         # no RaBitQ scan yet: a CPU index takes the probe path
-        mode = ivf_common.auto_search_mode(index.device, queries.shape[0], fused_ok, scan_ok=False)
+        mode = ivf_common.auto_search_mode(index.device, queries.shape[0], fused_ok,
+                                           scan_ok=False, algo="ivf_pq")
     expects(mode in ("probe", "fused"), "mode must be auto|probe|fused, got %r", mode)
     nq = queries.shape[0]
     if obs.is_enabled():

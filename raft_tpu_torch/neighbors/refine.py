@@ -1,9 +1,20 @@
 """Candidate re-ranking with exact distances (``raft_tpu.neighbors.refine``
 counterpart; reference ``neighbors/refine-inl.cuh:70``).
 
-Gathers each query's candidate vectors from a device-resident dataset,
-computes exact f32 distances and keeps the best k. The JAX package's
-host-tier gather (``HostVectorStore``) is not ported yet.
+Gathers each query's candidate vectors, computes exact f32 distances and
+keeps the best k. Two gather tiers share one re-rank core
+(:func:`_exact_rerank`):
+
+* a device-resident ``dataset``: the gather is ``dataset[ids]`` on the
+  dataset's device;
+* a host-resident ``dataset`` (a :class:`raft_tpu_torch.tiered.HostVectorStore`):
+  the store gathers the rows on the host into a staging slab
+  (:meth:`~raft_tpu_torch.tiered.HostVectorStore.gather_to`), which is
+  copied to the queries' device and re-ranked there.
+
+Both run the same f32 arithmetic on the same gathered values (an invalid
+id, ``-1``, takes row 0 in either), so a tiered re-rank gives the resident
+one's bits at the same batch shape.
 """
 from __future__ import annotations
 
@@ -13,6 +24,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch import obs
+from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.ops.distance import (
     DistanceType,
@@ -24,6 +36,18 @@ from raft_tpu_torch.ops.distance import (
 from raft_tpu_torch.ops.select_k import select_k, worst_value
 
 
+def is_host_dataset(dataset) -> bool:
+    """True for host-tier vector stores (duck-typed, so this module never
+    imports :mod:`raft_tpu_torch.tiered`, which imports it)."""
+    return getattr(dataset, "is_host_tier", False)
+
+
+def refine_source(dataset, device):
+    """``dataset`` as the refine gather reads it: a host-tier store as it
+    is, anything else as a tensor on ``device``."""
+    return dataset if is_host_dataset(dataset) else ser.as_tensor(dataset, device)
+
+
 def check_refine_dataset(dataset, index_size: int, algo: str = "index") -> None:
     """Validate a refine ``dataset`` before any scan runs."""
     shape = tuple(dataset.shape) if hasattr(dataset, "shape") else np.shape(dataset)
@@ -31,7 +55,8 @@ def check_refine_dataset(dataset, index_size: int, algo: str = "index") -> None:
     expects(
         int(shape[0]) >= index_size,
         "%s refine dataset has %d rows but the index holds %d vectors — every "
-        "stored id must be gatherable; pass the full build dataset",
+        "stored id must be gatherable; pass the full build dataset (or a HostVectorStore "
+        "over it)",
         algo, int(shape[0]), index_size,
     )
 
@@ -87,12 +112,19 @@ def refine(
 
 
 def _refine_dispatch(dataset, queries, candidates, k: int, metric, query_batch: int):
-    """The re-rank behind :func:`refine`, in query batches."""
+    """The re-rank behind :func:`refine`, in query batches; a host-tier
+    ``dataset`` gathers each batch's rows on the host (its candidates come
+    to the host for it) and re-ranks them on the queries' device."""
     metric = resolve_metric(metric)
     expects(metric in SUPPORTED, "refine: metric %s is not ported yet", metric)
-    dataset = torch.as_tensor(dataset)
-    queries = torch.as_tensor(queries).to(dataset.device)
-    candidates = torch.as_tensor(candidates).to(device=dataset.device, dtype=torch.int32)
+    host_tier = is_host_dataset(dataset)
+    if host_tier:
+        dev = queries.device if isinstance(queries, torch.Tensor) else torch.device("cpu")
+    else:
+        dataset = torch.as_tensor(dataset)
+        dev = dataset.device
+    queries = torch.as_tensor(queries).to(dev)
+    candidates = torch.as_tensor(candidates).to(device=dev, dtype=torch.int32)
     expects(candidates.ndim == 2, "candidates must be [n_queries, n_candidates]")
     expects(candidates.shape[0] == queries.shape[0], "queries/candidates row mismatch")
     n_cand = candidates.shape[1]
@@ -104,7 +136,10 @@ def _refine_dispatch(dataset, queries, candidates, k: int, metric, query_batch: 
     for s in range(0, nq, query_batch):
         c = candidates[s : s + query_batch]
         valid = c >= 0
-        cand_vecs = dataset[torch.where(valid, c, torch.zeros_like(c)).to(torch.int64)]
+        if host_tier:
+            cand_vecs = dataset.gather_to(c.cpu().numpy(), dev)
+        else:
+            cand_vecs = dataset[torch.where(valid, c, torch.zeros_like(c)).to(torch.int64)]
         v, i = _exact_rerank(cand_vecs, queries[s : s + query_batch], c, valid, k=k, metric=metric)
         out_v.append(v)
         out_i.append(i)

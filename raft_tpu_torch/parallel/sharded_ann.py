@@ -52,10 +52,16 @@ def _health_array(health, n_shards: int) -> Tuple[bool, ...]:
 
 def _resolve_merge_mode(merge_mode: str, n_shards: int, k=None) -> str:
     """``auto`` is the ring for more than one shard (exact parity with
-    gather, ~0.4 n times fewer wire bytes), else gather; ``fused_ring`` on
-    one shard has nothing to exchange and is gather."""
+    gather, ~0.4 n times fewer wire bytes), else gather, through
+    :func:`raft_tpu_torch.plan.plan_merge_mode` when the planner's gate is
+    on; ``fused_ring`` on one shard has nothing to exchange and is
+    gather."""
     expects(merge_mode in _MERGE_MODES, "merge_mode %r (want one of %s)", merge_mode, _MERGE_MODES)
     if merge_mode == "auto":
+        from raft_tpu_torch import plan
+
+        if plan.is_enabled():
+            return plan.plan_merge_mode(n_shards, k).choice
         return "ring" if n_shards > 1 else "gather"
     if merge_mode == "fused_ring" and n_shards == 1:
         return "gather"

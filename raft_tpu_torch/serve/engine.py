@@ -30,8 +30,34 @@ reports queue, cache, obs and per-index state. The ``serve.*`` counters
 and gauges (``serve.coverage``, ``serve.slow_shards``), the
 ``serve.dispatch`` span and fault seam, and the request traces (a
 ``trace_id`` a request, one ``obs.trace_scope`` a batch, a ``serve.queue``
-span a request) are the JAX engine's. Its planner, tiering, SLO and
-replica hooks are not ported yet.
+span a request) are the JAX engine's.
+
+Placement: with ``hbm_budget_bytes`` set, a ``brute_force``, ``ivf_flat`` or
+``ivf_pq`` registration's device residency
+(:func:`raft_tpu_torch.ops.hbm_model.residency_for_index`, the port's
+kernel caches included) joins the engine's fleet plan
+(:func:`~raft_tpu_torch.ops.hbm_model.plan_placement`). A refine
+``dataset`` that does not fit is rewrapped as a
+:class:`~raft_tpu_torch.tiered.HostVectorStore` (``serve.tiered_degrades``):
+the scan stays on the card and each batch's winners' rows come from host
+RAM, with the resident results' bits. Scan components that do not fit fail
+the registration typed. ``algo="tiered"`` registers a pre-built
+:class:`~raft_tpu_torch.tiered.TieredIndex`. A sharded registration with a
+dataset is planned per shard; where the JAX engine would convert it to
+``tiered_sharded`` the registration fails typed, since the sharded host
+tier (``tiered/sharded.py``) comes with queue A5.
+
+Planning: with the planner's gate on (``RAFT_TPU_PLAN``, on by default)
+every registration carries a :class:`~raft_tpu_torch.plan.RegistrationPlan`
+(the engine of each bucket, the merge engine, the tier label), which
+:meth:`~ServingEngine.plan_explain` prints. The planned engine joins the
+``ProgramKey``; :meth:`~ServingEngine.maintenance_tick` re-plans a
+registration whose corpus or traffic drifted (``plan.build`` and
+``plan.flip`` spans, ``plan.decisions``, ``serve.plan_flips``,
+``serve.plan.recosts``, ``serve.plan.epoch``). The planner chooses what the
+searches' inline ``auto`` rules choose, so serving gives the same bits with
+the gate on or off. The JAX engine's SLO, replica and flight-recorder hooks
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -62,9 +88,19 @@ from raft_tpu_torch.serve.bucketing import (
     params_key,
 )
 
-#: algo name -> default dispatch mode at registration
+#: algo name -> default dispatch mode at registration ("tiered": a pre-built
+#: TieredIndex, the device scan and the host-tier re-rank)
 _DEFAULT_MODES = {"brute_force": "exact", "ivf_flat": "auto", "ivf_pq": "auto", "cagra": "auto",
-                  "sharded_ivf_flat": "sharded", "sharded_ivf_pq_lists": "sharded"}
+                  "sharded_ivf_flat": "sharded", "sharded_ivf_pq_lists": "sharded",
+                  "tiered": "auto"}
+
+#: algos the placement planner models (and whose refine dataset can spill
+#: to the host tier)
+_TIERABLE_ALGOS = ("ivf_pq", "ivf_flat", "brute_force")
+
+#: sharded algos whose refine dataset the per-shard planner models, and
+#: the residency model each uses
+_SHARDED_TIERABLE = {"sharded_ivf_flat": "ivf_flat", "sharded_ivf_pq_lists": "ivf_pq"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +148,16 @@ class _Registration:
     #: generation of the last dispatched batch (-1 before the first);
     #: crossing a flip bumps the ``serve.generation_flips`` counter
     last_generation: int = -1
+    #: active :class:`raft_tpu_torch.plan.RegistrationPlan` (None with the
+    #: planner's gate off); swapped in one assignment by the re-plan tick
+    plan: object = None
+    #: batches a bucket since the last plan (the live batch-size histogram)
+    bucket_counts: Dict[int, int] = dataclasses.field(default_factory=dict)
+    #: dispatched rows/s EWMA, the traffic model's arrival-rate input
+    ewma_rows_per_s: float = 0.0
+    last_dispatch_t: float = -1.0
+    #: k of the latest dispatch: what a plan flip warms programs for
+    last_k: int = 10
 
 
 class ServingEngine:
@@ -127,9 +173,22 @@ class ServingEngine:
     def __init__(self, max_batch: int = 64, max_wait_ms: float = 2.0,
                  queue_capacity: int = 1024, res: Optional[Resources] = None,
                  maintenance_interval_ms: float = 10.0,
-                 slow_shard_s: Optional[float] = 0.25):
+                 slow_shard_s: Optional[float] = 0.25,
+                 hbm_budget_bytes: Optional[int] = None,
+                 host_budget_bytes: Optional[int] = None):
         self.max_batch = int(max_batch)
         self.res = ensure_resources(res)
+        #: device-memory budget of the placement planner (None: unplanned,
+        #: every registration keeps its dataset where the caller put it)
+        self.hbm_budget_bytes = hbm_budget_bytes
+        #: per-shard host-RAM budget of the sharded planner (None:
+        #: unconstrained, nothing plans to disk)
+        self.host_budget_bytes = host_budget_bytes
+        self._residencies: Dict[str, object] = {}
+        #: the planner's last verdict (an ``hbm_model.Placement``)
+        self.placement = None
+        #: per-registration sharded verdicts (``hbm_model.ShardedPlacement``)
+        self.sharded_placements: Dict[str, object] = {}
         self.batcher = MicroBatcher(max_batch=max_batch, max_wait_ms=max_wait_ms,
                                     capacity=queue_capacity)
         self.cache = ProgramCache()
@@ -150,24 +209,117 @@ class ServingEngine:
                  **search_kwargs) -> None:
         """Register ``index`` (``algo`` = ``brute_force`` | ``ivf_flat`` |
         ``ivf_pq`` | ``cagra`` | ``sharded_ivf_flat`` |
-        ``sharded_ivf_pq_lists``). ``params``/``mode``/``search_kwargs`` are
-        pinned at registration; ``dataset`` enables integrated refine (for
-        ``ivf_pq`` at the params' ``refine_ratio``, 8 by default). The
-        sharded algos need ``mesh`` (their lists are split over its
-        ``axis``), take ``min_coverage`` as their floor (below it a batch
-        fails with ``ShardFailure`` rather than return near-empty results)
-        and pin ``merge_mode`` (``"auto"`` | ``"ring"`` | ``"fused_ring"`` |
-        ``"gather"``)."""
+        ``sharded_ivf_pq_lists`` | ``tiered``). ``params``/``mode``/
+        ``search_kwargs`` are pinned at registration; ``dataset`` enables
+        integrated refine (for ``ivf_pq`` at the params' ``refine_ratio``, 8
+        by default). The sharded algos need ``mesh`` (their lists are split
+        over its ``axis``), take ``min_coverage`` as their floor (below it a
+        batch fails with ``ShardFailure`` rather than return near-empty
+        results) and pin ``merge_mode`` (``"auto"`` | ``"ring"`` |
+        ``"fused_ring"`` | ``"gather"``).
+
+        ``algo="tiered"`` registers a pre-built
+        :class:`raft_tpu_torch.tiered.TieredIndex` (its store, refine ratio
+        and params travel with it). With the engine's ``hbm_budget_bytes``
+        set, a ``dataset`` the placement planner cannot fit beside the
+        registered indexes is rewrapped as a
+        :class:`~raft_tpu_torch.tiered.HostVectorStore`, so the registration
+        serves tiered instead of overfilling the card; scan components that
+        do not fit raise ``LogicError``. A sharded registration with a
+        ``dataset`` runs the per-shard planner: a refine slab that stays on
+        the device registers as it is, one that would spill raises
+        ``LogicError`` (the sharded host tier is queue A5's)."""
         expects(algo in _DEFAULT_MODES, "unknown serving algo %r (want one of %s)",
                 algo, ", ".join(sorted(_DEFAULT_MODES)))
         if algo.startswith("sharded_"):
             expects(mesh is not None, "sharded algo %r needs mesh=", algo)
-        self._indexes[index_id] = _Registration(
+        if algo in _SHARDED_TIERABLE:
+            self._plan_tier_sharded(index_id, algo, index, dataset, mesh=mesh, axis=axis)
+        else:
+            dataset = self._plan_tier(index_id, algo, index, dataset)
+        reg = _Registration(
             index_id=index_id, algo=algo, index=index, params=params,
             mode=mode if mode is not None else _DEFAULT_MODES[algo],
             dataset=dataset, mesh=mesh, axis=axis, min_coverage=min_coverage,
             merge_mode=merge_mode, search_kwargs=dict(search_kwargs),
         )
+        reg.plan = self._plan_registration(reg)
+        self._indexes[index_id] = reg
+
+    def _plan_tier(self, index_id: str, algo: str, index, dataset):
+        """Ask the placement planner about this registration. With no
+        budget, or an algo the model does not cover, the dataset passes
+        through. Otherwise the index's residency joins the fleet plan: its
+        scan components must fit (else ``LogicError``), and a refine
+        dataset the plan spills comes back as a ``HostVectorStore``."""
+        if self.hbm_budget_bytes is None or algo not in _TIERABLE_ALGOS:
+            return dataset
+        from raft_tpu_torch.neighbors.refine import is_host_dataset
+        from raft_tpu_torch.ops.hbm_model import plan_placement, residency_for_index
+
+        refine_rows = 0
+        if dataset is not None and not is_host_dataset(dataset):
+            refine_rows = int(dataset.shape[0])
+        res = residency_for_index(index_id, algo, index, refine_rows=refine_rows)
+        fleet = [r for iid, r in self._residencies.items() if iid != index_id]
+        placement = plan_placement(fleet + [res], hbm_budget=self.hbm_budget_bytes)
+        expects(
+            placement.feasible,
+            "registering %r needs %d B of scan-resident device memory against a budget of "
+            "%d B — required components cannot tier to the host; shard or shrink the index",
+            index_id, sum(r.required_bytes for r in fleet) + res.required_bytes,
+            self.hbm_budget_bytes,
+        )
+        self._residencies[index_id] = res
+        self.placement = placement
+        if refine_rows and placement.tier(index_id, "raw_vectors") == "host":
+            from raft_tpu_torch.tiered import HostVectorStore
+
+            dataset = HostVectorStore(dataset)
+            obs.inc("serve.tiered_degrades", index_id=index_id, algo=algo)
+        return dataset
+
+    def _plan_tier_sharded(self, index_id: str, algo: str, index, dataset, *, mesh,
+                           axis: str) -> None:
+        """Per-shard placement of a lists-sharded registration with a
+        refine ``dataset`` under the budget. A slab that stays on each
+        shard's device registers as it is; one the planner would move off
+        the device raises ``LogicError``: the JAX engine converts it to
+        ``tiered_sharded``, whose per-shard host tier (``tiered/sharded.py``)
+        the port does not have until queue A5, and it must never silently
+        stay resident. Scan components that do not fit raise too."""
+        if self.hbm_budget_bytes is None or dataset is None:
+            return
+        from raft_tpu_torch.neighbors.refine import is_host_dataset
+        from raft_tpu_torch.ops.hbm_model import plan_placement_sharded, residency_for_index
+
+        expects(not is_host_dataset(dataset),
+                "a sharded registration cannot take a HostVectorStore: the sharded host tier "
+                "(tiered/sharded.py) is not ported yet (ROADMAP queue A5)")
+        n_shards = mesh.shape[axis]
+        res = residency_for_index(index_id, _SHARDED_TIERABLE[algo], index,
+                                  refine_rows=int(dataset.shape[0]))
+        placement = plan_placement_sharded(
+            [res], n_shards, hbm_budget_per_shard=self.hbm_budget_bytes,
+            host_budget_per_shard=self.host_budget_bytes,
+        )
+        expects(
+            placement.feasible,
+            "registering %r needs %d B/shard of scan-resident device memory over %d shards "
+            "against a per-shard budget of %d B — required components cannot tier to the "
+            "host; add shards or shrink the index",
+            index_id, placement.device_bytes_per_shard - placement.staging_device_bytes,
+            n_shards, self.hbm_budget_bytes,
+        )
+        expects(
+            placement.tier(index_id, "raw_vectors") == "device",
+            "registering %r: the per-shard planner puts its refine dataset on the shards' %s "
+            "tier, which needs the sharded host tier (tiered/sharded.py, the JAX engine's "
+            "tiered_sharded); it is not ported yet (ROADMAP queue A5). Raise "
+            "hbm_budget_bytes or register without dataset=",
+            index_id, placement.tier(index_id, "raw_vectors"),
+        )
+        self.sharded_placements[index_id] = placement
 
     def register_mutable(self, index_id: str, mutable, *, params=None, policy=None,
                          compactor=None, **search_kwargs) -> None:
@@ -198,10 +350,14 @@ class ServingEngine:
             compactor = Compactor(mutable, policy=policy, name=index_id)
         if compactor is not None:
             compactor.start()
-        self._indexes[index_id] = _Registration(
+        reg = _Registration(
             index_id=index_id, algo="mutable", index=mutable, params=params,
             mode="snapshot", search_kwargs=dict(search_kwargs), compactor=compactor,
         )
+        # no engine pick for snapshot dispatch, but the plan carries the
+        # corpus and traffic anchors the re-plan tick tracks
+        reg.plan = self._plan_registration(reg)
+        self._indexes[index_id] = reg
 
     def registered(self) -> List[str]:
         return list(self._indexes)
@@ -324,14 +480,16 @@ class ServingEngine:
 
     def maintenance_tick(self) -> None:
         """One watchdog + auto-compaction pass over every registration
-        that carries a :class:`~raft_tpu_torch.mutable.Compactor`. Driven
-        from :meth:`step` (rate-limited by ``maintenance_interval_ms``);
+        that carries a :class:`~raft_tpu_torch.mutable.Compactor`, then the
+        planner's drift check (:meth:`_replan_tick`). Driven from
+        :meth:`step` (rate-limited by ``maintenance_interval_ms``);
         callable directly by deployments with their own schedulers. The
-        JAX engine's tick also re-plans registrations and samples its
-        flight recorder; the port has neither yet."""
+        JAX engine's tick also samples its flight recorder, which the port
+        does not have yet."""
         for reg in list(self._indexes.values()):
             if reg.compactor is not None:
                 reg.compactor.tick()
+        self._replan_tick()
 
     def shutdown(self, wait: bool = True) -> None:
         """Stop every engine-owned background compactor. Queued requests
@@ -346,7 +504,7 @@ class ServingEngine:
         reg = self._reg(index_id)
         snap = reg.index.snapshot() if reg.algo == "mutable" else None
         generation = snap.generation if snap is not None else 0
-        keys = [ProgramKey(index_id, reg.algo, b, int(k), params_key(reg.params), generation)
+        keys = [ProgramKey(index_id, reg.algo, b, int(k), self._program_params(reg, b), generation)
                 for b in bucket_sizes(self.max_batch)]
         built = self.cache.warmup(keys, lambda key: (lambda: self._build_program(reg, key.bucket, key.k)))
         if run:
@@ -387,20 +545,169 @@ class ServingEngine:
             health.append(ok)
         return tuple(health)
 
-    def _build_program(self, reg: _Registration, bucket: int, k: int) -> Callable:
+    # -- query planning ----------------------------------------------------
+
+    def _tier_label(self, reg: _Registration) -> str:
+        """Placement verdict recorded on the plan ("" = unplanned)."""
+        if reg.algo == "tiered":
+            return "tiered"
+        if reg.dataset is not None:
+            from raft_tpu_torch.neighbors.refine import is_host_dataset
+
+            if is_host_dataset(reg.dataset):
+                return "tiered"
+        if reg.index_id in self._residencies or reg.index_id in self.sharded_placements:
+            return "resident"
+        return ""
+
+    @staticmethod
+    def _corpus_rows(reg: _Registration) -> int:
+        try:
+            return int(getattr(reg.index, "size", 0) or 0)
+        except (TypeError, ValueError):
+            return 0
+
+    def _plan_registration(self, reg: _Registration, k: Optional[int] = None,
+                           traffic=None, epoch: int = 0):
+        """Cost this registration's decisions (None with the gate off).
+
+        ``fused_ok`` is passed optimistically: a planned ``fused`` dispatches
+        as ``"auto"`` (:meth:`_planned_mode`), so the search's own kernel
+        check stays authoritative. ``on_cuda`` and the scan's eligibility
+        are the index's (:func:`raft_tpu_torch.plan.on_cuda`,
+        :func:`raft_tpu_torch.neighbors.ivf_common.auto_scan`)."""
+        from raft_tpu_torch import plan
+        from raft_tpu_torch.neighbors.ivf_common import auto_scan
+
+        if not plan.is_enabled():
+            return None
+        device = getattr(reg.index, "device", self.res.device)
+        scan_ok, scan_reason = auto_scan(device, not getattr(reg.index, "rabitq", False))
+        n_shards = reg.mesh.shape[reg.axis] if reg.mesh is not None else 0
+        with obs.span("plan.build", index_id=reg.index_id, algo=reg.algo, epoch=epoch):
+            return plan.plan_registration(
+                reg.index_id,
+                reg.algo,
+                buckets=bucket_sizes(self.max_batch),
+                corpus_rows=self._corpus_rows(reg),
+                on_cuda=plan.on_cuda(device),
+                fused_ok=True,
+                scan_ok=scan_ok,
+                scan_reason=scan_reason,
+                n_shards=n_shards,
+                k=int(k if k is not None else reg.last_k),
+                tier=self._tier_label(reg),
+                mode_pinned=reg.mode != "auto",
+                merge_pinned=reg.merge_mode != "auto",
+                traffic=traffic,
+                epoch=epoch,
+            )
+
+    @staticmethod
+    def _planned_mode(reg: _Registration, bucket: int, plan=None) -> Optional[str]:
+        """The plan's engine for this bucket (None: dispatch on
+        ``reg.mode``). A planned ``fused`` dispatches as ``"auto"``: the
+        search resolves it again, to the kernel where it can serve."""
+        plan = plan if plan is not None else reg.plan
+        if plan is None or reg.mode != "auto":
+            return None
+        m = plan.mode_for(bucket, "")
+        if not m:
+            return None
+        return "auto" if m == "fused" else m
+
+    def _program_params(self, reg: _Registration, bucket: int, plan=None) -> Tuple:
+        """Params tuple for the ProgramKey: the registration's params and
+        the planned engine where one applies, so a flip that changes a
+        bucket's engine builds a new program and one that does not reuses
+        the cached one."""
+        pk = params_key(reg.params)
+        m = self._planned_mode(reg, bucket, plan=plan)
+        if m is not None:
+            pk = pk + (("planned_mode", m),)
+        return pk
+
+    def plan_explain(self, index_id: str) -> Optional[str]:
+        """The active plan's full cost breakdown (None with the planner's
+        gate off)."""
+        reg = self._reg(index_id)
+        return reg.plan.explain() if reg.plan is not None else None
+
+    def _warm_plan(self, reg: _Registration, new_plan) -> List[ProgramKey]:
+        """Build and run the new plan's warm buckets' programs before the
+        swap, so a flip never builds a kernel on the serving path."""
+        if reg.mode != "auto" or not new_plan.bucket_modes:
+            return []
+        keys = [
+            ProgramKey(reg.index_id, reg.algo, b, int(reg.last_k),
+                       self._program_params(reg, b, plan=new_plan), 0)
+            for b in new_plan.warm_buckets
+            if new_plan.mode_for(b, "")
+        ]
+        for key in keys:
+            prog = self.cache.get(
+                key, lambda: self._build_program(reg, key.bucket, key.k, plan=new_plan))
+            zeros = torch.zeros((key.bucket, int(reg.index.dim)), device=self.res.device)
+            _host(tuple(prog(zeros))[0])  # wait for the run
+        return keys
+
+    def _replan_tick(self) -> None:
+        """Re-cost every planned registration whose corpus or traffic
+        drifted past the hysteresis thresholds; swap the plan in one
+        assignment when a decision changed (``serve.plan_flips``), refresh
+        the anchors when none did (``serve.plan.recosts``)."""
+        from raft_tpu_torch import plan
+
+        if not plan.is_enabled():
+            return
+        for reg in list(self._indexes.values()):
+            rp = reg.plan
+            if rp is None:
+                continue
+            traffic = plan.traffic_from_counts(reg.bucket_counts, reg.ewma_rows_per_s)
+            rows = self._corpus_rows(reg)
+            if not plan.needs_replan(rp, rows, traffic):
+                continue
+            new = self._plan_registration(reg, k=reg.last_k, traffic=traffic,
+                                          epoch=rp.epoch + 1)
+            if new is None:
+                continue
+            if rp.same_decisions(new):
+                # drift acknowledged, decisions unchanged: re-anchor
+                # without an epoch (or a program)
+                reg.plan = dataclasses.replace(new, epoch=rp.epoch)
+                obs.inc("serve.plan.recosts", index_id=reg.index_id)
+                continue
+            with obs.span("plan.flip", index_id=reg.index_id, epoch=new.epoch, algo=reg.algo):
+                self._warm_plan(reg, new)
+                # one assignment: a dispatch reads the old plan or the new
+                # one, never a mix
+                reg.plan = new
+            reg.bucket_counts = {}
+            obs.inc("serve.plan_flips", index_id=reg.index_id)
+            obs.set_gauge("serve.plan.epoch", float(new.epoch), index_id=reg.index_id)
+
+    def _build_program(self, reg: _Registration, bucket: int, k: int, plan=None) -> Callable:
         from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
 
         kw = reg.search_kwargs
+        # the planner's engine for this bucket ("auto" for a planned fused:
+        # the search's own kernel check decides)
+        mode = self._planned_mode(reg, bucket, plan=plan) or reg.mode
         if reg.algo == "mutable":
             # the snapshot is not baked into the closure: it arrives per
             # dispatch, so a cached program never serves a stale view
             return lambda q, snap: snap.search(q, k, params=reg.params, **kw)
+        if reg.algo == "tiered":
+            # "auto" defers to the TieredIndex's own default for its family
+            t_mode = None if reg.mode == "auto" else reg.mode
+            return lambda q: reg.index.search(q, k, mode=t_mode, **kw)
         if reg.algo == "brute_force":
             return lambda q: brute_force.search(reg.index, q, k, query_batch=bucket,
                                                 dataset=reg.dataset, **kw)
         if reg.algo == "cagra":
             return lambda q: cagra.search(reg.index, q, k, reg.params, query_batch=bucket,
-                                          mode=reg.mode, **kw)
+                                          mode=mode, **kw)
         if reg.algo.startswith("sharded_"):
             # a timed health probe a dispatch; failed and slow shards are
             # left out and the result carries its coverage
@@ -413,7 +720,7 @@ class ServingEngine:
                 merge_mode=reg.merge_mode, **kw)
         algo = ivf_flat if reg.algo == "ivf_flat" else ivf_pq
         return lambda q: algo.search(reg.index, q, k, reg.params, query_batch=bucket,
-                                     mode=reg.mode, dataset=reg.dataset, **kw)
+                                     mode=mode, dataset=reg.dataset, **kw)
 
     def _dispatch(self, batch: Sequence[Request], now: float) -> None:
         """Pad the batch to its bucket, run its program, complete every
@@ -435,7 +742,16 @@ class ServingEngine:
             if reg.last_generation >= 0 and generation != reg.last_generation:
                 obs.inc("serve.generation_flips", index_id=reg.index_id)
             reg.last_generation = generation
-        key = ProgramKey(reg.index_id, reg.algo, bucket, k, params_key(reg.params), generation)
+        # the traffic model's inputs: the batch-size histogram and the
+        # arrival-rate EWMA the re-plan tick measures drift against
+        reg.bucket_counts[bucket] = reg.bucket_counts.get(bucket, 0) + 1
+        reg.last_k = k
+        if reg.last_dispatch_t >= 0.0:
+            rate = n / max(now - reg.last_dispatch_t, 1e-6)
+            reg.ewma_rows_per_s = 0.25 * rate + 0.75 * reg.ewma_rows_per_s
+        reg.last_dispatch_t = now
+        key = ProgramKey(reg.index_id, reg.algo, bucket, k, self._program_params(reg, bucket),
+                         generation)
         # the batch's trace IDs ride the dispatch thread: every span below
         # carries them; NULL_SCOPE keeps the disabled path allocation-free
         scope = (obs.trace_scope(tuple(r.trace_id for r in batch)) if obs.is_enabled()

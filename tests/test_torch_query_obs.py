@@ -14,8 +14,8 @@ inputs), and the two registries must hold:
 Left out: span timings and args (several are trace-time only in JAX:
 ``traced=True``, tracer shapes), the sums of ``beam_occupancy`` (the two
 packages' CAGRA beams drift apart at near ties), and JAX's planner
-counters ``plan.*`` (the planner is not ported; an ``auto`` search counts
-its decision there).
+counters ``plan.*`` (an ``auto`` search counts its decision there; the
+planners' counters are compared in ``tests/test_torch_plan.py``).
 
 Two JAX spans the port does not record: ``ivf_pq.search.rabitq_xla``
 (RaBitQ's dense scan, not ported) and ``brute_force.search.approx``
