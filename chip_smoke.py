@@ -1,7 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -123,6 +123,20 @@ Phases, in order; any failure exits non-zero:
    inline rule beside each engine's time, serving bit-equal with
    ``RAFT_TPU_PLAN`` 0 and 1; ``smem_model`` against each kernel's
    ``*_smem_bytes`` export with its ``ptxas`` lines.
+11. the rest of the multi-device layer (:func:`multi_phase`) over
+   ``make_mesh(["cuda:0"] * 4)``: ``sharded_ivf_pq_build`` of the 1M rows
+   with the full and the communication-avoiding exchange (the build's comms
+   counters beside the wire model, build seconds, peak memory, a rebuild
+   equal in every field, recall within 0.05 of the single-device build),
+   the built index served lists-sharded (B6, B7 and gather bit-equal);
+   ``sharded_ivf_pq_search`` and ``sharded_cagra_search`` on phases 4's and
+   6's indexes, each shard's rows equal to the single-device search of the
+   same slice; RaBitQ's dense scan on phase 5's index beside B3; phase 4's
+   index registered sharded with ``dataset=`` under a per-shard budget that
+   converts it to ``tiered_sharded``, served bit-equal to the resident
+   sharded search plus refine batch by batch, with shard 2's host tier
+   lost (coverage 0.75) and a ``min_coverage`` floor; the comms verbs added
+   with it against numpy.
 
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
 256, with ties, signed zeros, padding and ``inf``) against its plain
@@ -138,7 +152,7 @@ engine and of the gather merge into host and device time
 kernel's stage clock (``fused_ring_topk_split``).
 
 Each kernel's launch count is zeroed just before its path runs (phases
-3-10) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
+3-11) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
 adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
 IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 (:func:`run_phases`): ``paths`` times the IVF-Flat search paths per call
@@ -147,7 +161,8 @@ IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 phase 2's B3 checks, ``rabitq`` phase 5, ``b1`` and ``b4`` phase 2's B1
 or B4 checks and then that kernel at the main path's shapes on the 1M
 index, ``mutable`` phase 8, ``robust`` phase 9 (with ``--tree`` only the
-sharded backlog's QPS, :func:`sharded_serve_qps`), ``tiered`` phase 10;
+sharded backlog's QPS, :func:`sharded_serve_qps`), ``tiered`` phase 10,
+``multi`` phase 11;
 with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
@@ -608,7 +623,7 @@ def rabitq_phase(card, res, X, X_card, Qt, gt_i, k: int, kk: int, max_err,
     version and its bound, its CTA plan, stage split and filter check
     (not for an older tree's package: ``this_tree`` False).
     ``fused_rabitq_topk.launches`` is zeroed just before the search and
-    read just after. Returns ``(launches, B3's times)``."""
+    read just after. Returns ``(launches, B3's times, the index)``."""
     from raft_tpu_torch.neighbors import ivf_pq
     from raft_tpu_torch.ops import rabitq_scan
     from raft_tpu_torch.stats.recall import neighborhood_recall
@@ -657,7 +672,7 @@ def rabitq_phase(card, res, X, X_card, Qt, gt_i, k: int, kk: int, max_err,
         # where B3's cycles go at that shape: one launch with the stage clock on
         rabitq_split_line(card, "rabitq", a, k=kk, queries=1024)
         rabitq_filter_line(card, "rabitq", a, rv, rs, k=kk, queries=1024)
-    return rq_launches, b3
+    return rq_launches, b3, rq_index
 
 
 def rabitq_plan(a, k: int) -> dict:
@@ -2540,6 +2555,368 @@ def tiered_phase(card, res, index, pq_index, cg, X, X_card, Q, gt_i, k: int, siz
     return launches
 
 
+def multi_phase(card, res, X, X_card, Q, gt_i, k: int, sizes, pq_index, cg, rq_index) -> dict:
+    """Phase 11: the rest of the multi-device layer at full width over
+    ``make_mesh(["cuda:0"] * 4)`` (:func:`run_phases`'s ``multi``), on phases
+    3-7's data and indexes (1,000,000 x 128, phase 4's IVF-PQ ``pq_index``,
+    phase 5's RaBitQ ``rq_index``, phase 6's CAGRA ``cg``). Each part prints
+    JSON lines with the card's name and power limit.
+
+    (a) ``sharded_ivf_pq_build`` of the 1M rows (``n_lists=1024``,
+        ``pq_dim=64``, ``pq_bits=8``) with ``comm_mode="full"`` and ``"ca"``
+        (obs on: ``comms.build.bytes`` and ``.launches`` by phase beside the
+        wire model's bytes an iteration), then ``"ca"`` again with obs off,
+        equal in every field; build seconds and peak
+        ``torch.cuda.max_memory_allocated()``; recall@10 of ``search(mode=
+        "scan", n_probes=30)`` over 2,048 queries of each build at least
+        that of a single-device ``ivf_pq.build(pq_kind="kmeans")`` of the
+        same params less 0.05.
+    (b) The CA build served lists-sharded (2,048 queries in 1,024-row
+        batches): ``ring`` (B6), ``fused_ring`` (B7) and ``gather`` bit-equal;
+        recall.
+    (c) ``sharded_ivf_pq_search`` of 4,096 queries on ``pq_index``: each
+        shard's 1,024 rows ``torch.equal`` to the single-device ``search(mode=
+        "scan")`` of the same slice; QPS of both.
+    (d) ``sharded_cagra_search`` of 4,096 queries on ``cg`` (itopk 128, width
+        8, ``init_sample=16384``): each shard's rows equal ``cagra.search(mode=
+        "xla")`` of the same slice; with ``init_sample=0`` recall within 0.1
+        of the single-device search's; QPS.
+    (e) RaBitQ's dense scan on ``rq_index``: the 10,000 queries in 1,024-row
+        batches with and without 8x refine, recall, the share of ids equal to
+        the fused path's (B3), ms a batch; ``auto`` on the CUDA index still
+        takes B3 from 128 queries.
+    (f) ``pq_index`` registered as ``sharded_ivf_pq_lists`` with ``dataset=``
+        (8x refine) under a per-shard ``hbm_budget_bytes`` that spills the raw
+        rows and keeps the codes: ``tiered_sharded``, ``serve.tiered_degrades``
+        1; the first 2,048 rows' requests served one at a time and every
+        request as a backlog, each batch bit-equal to the resident sharded
+        search (``merge_mode="ring"``, B6) plus the device refine of the same
+        padded batch; the tiered and resident backlogs' QPS in turns, B6's
+        launches, the busy share; shard 2's host tier killed through
+        ``host.fetch`` (``match={"shard": 2}``): coverage 0.75,
+        ``failed_shards == (2,)``, no id of its lists; a ``min_coverage`` of
+        0.9 fails the futures typed.
+    (g) The comms verbs added in this slice over the four shards, each rank
+        against its numpy expectation.
+
+    Each kernel's launch count is zeroed before (b)-(f) and read after;
+    launches made only to compare are left out. Returns the launches."""
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.core.errors import ShardFailure
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import cagra, ivf_common, ivf_pq
+    from raft_tpu_torch.neighbors.refine import refine
+    from raft_tpu_torch.ops import hbm_model, pq_scan, rabitq_scan
+    from raft_tpu_torch.ops import ring_topk as rt
+    from raft_tpu_torch.parallel import (comms, make_mesh, sharded_cagra_search,
+                                         sharded_ivf_pq_build, sharded_ivf_pq_lists_search,
+                                         sharded_ivf_pq_search, wire_model)
+    from raft_tpu_torch.robust import faults
+    from raft_tpu_torch.serve import ServingEngine
+    from raft_tpu_torch.serve.bucketing import bucket_for
+    from raft_tpu_torch.stats.recall import neighborhood_recall
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(["cuda:0"] * 4)
+    n, d = X.shape
+    dev = X_card.device
+    nq = Q.shape[0]
+    Qt = torch.from_numpy(Q).to(dev)
+    starts = np.cumsum([0] + list(sizes[:-1]))
+    b2, b3 = pq_scan.fused_pq_topk, rabitq_scan.fused_rabitq_topk
+    b6, b7 = rt.fused_ring_topk, rt.fused_scan_ring_topk
+    kernels = (b2, b3, b6, b7)
+
+    def uncounted(fn):
+        """``fn()`` for a comparison: its launches leave the counts alone."""
+        before = [f.launches for f in kernels]
+        out = fn()
+        for f, c in zip(kernels, before):
+            f.launches = c
+        return out
+
+    # (a) the distributed build, full and CA exchange
+    qr = 2048
+    bp = ivf_pq.IvfPqIndexParams(n_lists=1024, pq_dim=64, pq_bits=8)
+    sp = ivf_pq.IvfPqSearchParams(n_probes=30, refine_ratio=1)
+
+    def scan_recall(index):
+        _, ids = ivf_pq.search(index, Qt[:qr], k, sp, mode="scan")
+        return neighborhood_recall(ids, gt_i[:qr])
+
+    built = {}
+    fields = ("centers", "rotation", "pq_centers", "codes", "list_indices", "list_sizes",
+              "rot_sqnorms")
+    for mode in ("full", "ca"):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (index, secs), snap = with_obs(lambda: timed_build(
+            lambda: sharded_ivf_pq_build(mesh, X_card, bp, comm_mode=mode)))
+        c = snap["counters"]
+        by_phase = {p: {"launches": c.get(f'comms.build.launches{{phase="{p}"}}', 0.0),
+                        "bytes": c.get(f'comms.build.bytes{{phase="{p}"}}', 0.0)}
+                    for p in ("kmeans_full", "kmeans_ca", "pq_codebook_full", "pq_codebook_ca",
+                              "seed")}
+        built[mode] = index
+        emit(card, phase="multi", metric="sharded_ivf_pq_build", comm_mode=mode,
+             build_s_obs_on=secs, shards=mesh.size, n_lists=bp.n_lists, pq_dim=bp.pq_dim,
+             kmeans_n_iters=bp.kmeans_n_iters, comms_build=by_phase,
+             allreduce_calls=c.get('comms.allreduce.calls{axis="data"}', 0.0),
+             lloyd_wire_bytes_per_iter=wire_model.lloyd_wire_bytes_per_iter(
+                 bp.n_lists, d, mesh.size, comm_mode=mode),
+             codebook_wire_bytes_per_iter=wire_model.codebook_wire_bytes_per_iter(
+                 bp.pq_dim, 1 << bp.pq_bits, d // bp.pq_dim, mesh.size, comm_mode=mode),
+             peak_allocated_bytes=torch.cuda.max_memory_allocated() - base,
+             max_list=index.max_list)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    again, again_s = timed_build(lambda: sharded_ivf_pq_build(mesh, X_card, bp, comm_mode="ca"))
+    diff = differing_fields(built["ca"], again, fields)
+    emit(card, phase="multi", metric="sharded_ivf_pq_build_determinism", comm_mode="ca",
+         build_s_obs_off=again_s, peak_allocated_bytes=torch.cuda.max_memory_allocated() - base,
+         fields_differing=diff)
+    if diff:
+        raise AssertionError(f"the sharded IVF-PQ build built twice from one seed differs in {diff}")
+    del again
+    single, single_s = timed_build(lambda: ivf_pq.build(
+        X_card, dataclasses.replace(bp, pq_kind="kmeans"), res=res))
+    rec = {"single_device": scan_recall(single)}
+    rec.update({mode: scan_recall(idx) for mode, idx in built.items()})
+    emit(card, phase="multi", metric="sharded_build_recall@10", queries=qr, n_probes=30,
+         mode="scan", single_device_build_s=single_s, **rec)
+    del single
+    for mode in ("full", "ca"):
+        if rec[mode] < rec["single_device"] - 0.05:
+            raise AssertionError(f"the {mode} sharded build's recall {rec[mode]} is more than "
+                                 f"0.05 below the single-device build's {rec['single_device']}")
+
+    # (b) the CA build served lists-sharded: ring, fused_ring and gather
+    for f in kernels:  # (b)-(f) are the path: its launches from here
+        f.launches = 0
+    qb = 1024
+    lists_sp = ivf_pq.IvfPqSearchParams(n_probes=30)
+    out, secs = {}, {}
+    for mode in ("ring", "fused_ring", "gather"):
+        res_, secs[mode] = timed_build(lambda: [
+            sharded_ivf_pq_lists_search(mesh, built["ca"], Qt[s:s + qb], k, lists_sp,
+                                        merge_mode=mode) for s in range(0, qr, qb)])
+        out[mode] = (torch.cat([o[0] for o in res_]), torch.cat([o[1] for o in res_]))
+    for mode in ("fused_ring", "gather"):
+        exact_err(f"lists-sharded search of the sharded build: {mode} vs ring", out[mode],
+                  out["ring"])
+    emit(card, phase="multi", metric="sharded_build_served_lists_sharded", queries=qr,
+         query_batch=qb, qps={m: qr / s for m, s in secs.items()}, bit_equal=True,
+         recall=neighborhood_recall(out["ring"][1], gt_i[:qr]),
+         launches={f.__name__: f.launches for f in (b6, b7)})
+    del built
+
+    # (c) query-sharded IVF-PQ on phase 4's index, 1,024 rows a shard
+    qs = 4096
+    per = qs // mesh.size
+    (sv, si), sharded_s = timed_build(lambda: sharded_ivf_pq_search(mesh, pq_index, Qt[:qs], k,
+                                                               lists_sp))
+    single_s = 0.0
+    for r in range(mesh.size):
+        (dv, iv), s_ = timed_build(lambda: uncounted(lambda: ivf_pq.search(
+            pq_index, Qt[r * per:(r + 1) * per], k, lists_sp, mode="scan")))
+        single_s += s_
+        exact_err(f"query-sharded IVF-PQ shard {r} vs the single-device scan",
+                  (sv[r * per:(r + 1) * per], si[r * per:(r + 1) * per]), (dv, iv))
+    emit(card, phase="multi", metric="sharded_ivf_pq_search", queries=qs, shards=mesh.size,
+         qps=qs / sharded_s, single_device_scan_qps=qs / single_s, bit_equal_per_shard=True,
+         recall_no_refine=neighborhood_recall(si, gt_i[:qs]))
+
+    # (d) query-sharded CAGRA on phase 6's index (the xla beam loop)
+    cp = cagra.CagraSearchParams(itopk_size=128, search_width=8, dedup="post",
+                                 init_sample=SERVE_INIT_SAMPLE)
+    (cv, ci), cagra_s = timed_build(lambda: sharded_cagra_search(mesh, cg, Qt[:qs], k, cp))
+    for r in range(mesh.size):
+        want = uncounted(lambda: cagra.search(cg, Qt[r * per:(r + 1) * per], k, cp, mode="xla"))
+        exact_err(f"query-sharded CAGRA shard {r} vs the single-device xla search",
+                  (cv[r * per:(r + 1) * per], ci[r * per:(r + 1) * per]), want)
+    rnd = dataclasses.replace(cp, init_sample=0)
+    (_, ri), rnd_s = timed_build(lambda: sharded_cagra_search(mesh, cg, Qt[:qs], k, rnd))
+    _, si1 = uncounted(lambda: cagra.search(cg, Qt[:qs], k, rnd, mode="xla"))
+    rec_rnd, rec_single = neighborhood_recall(ri, gt_i[:qs]), neighborhood_recall(si1, gt_i[:qs])
+    emit(card, phase="multi", metric="sharded_cagra_search", queries=qs, shards=mesh.size,
+         qps=qs / cagra_s, bit_equal_per_shard=True, recall=neighborhood_recall(ci, gt_i[:qs]),
+         init_sample=cp.init_sample, random_seeds_qps=qs / rnd_s, random_seeds_recall=rec_rnd,
+         random_seeds_single_device_recall=rec_single)
+    if abs(rec_rnd - rec_single) > 0.1:
+        raise AssertionError(f"sharded CAGRA with random seeds: recall {rec_rnd} more than 0.1 "
+                             f"from the single-device search's {rec_single}")
+
+    # (e) RaBitQ's dense scan on phase 5's index, against the fused path (B3)
+    rq = ivf_pq.IvfPqSearchParams()
+    for refine_ratio in (1, 8):
+        p = dataclasses.replace(rq, refine_ratio=refine_ratio)
+        ds = X_card if refine_ratio > 1 else None
+        (_, s_ids), scan_s = timed_build(lambda: ivf_pq.search(
+            rq_index, Qt, k, p, mode="scan", query_batch=1024, dataset=ds))
+        _, f_ids = uncounted(lambda: ivf_pq.search(rq_index, Qt, k, p, mode="fused",
+                                                   query_batch=1024, dataset=ds))
+        emit(card, phase="multi", metric="rabitq_dense_scan", refine_ratio=refine_ratio,
+             queries=nq, query_batch=1024, ms_per_batch=scan_s * 1e3 / -(-nq // 1024),
+             recall=neighborhood_recall(s_ids, gt_i),
+             fused_recall=neighborhood_recall(f_ids, gt_i),
+             ids_equal_to_fused=float((s_ids == f_ids).to(torch.float32).mean()),
+             chunk_lists=ivf_pq.rabitq_scan_chunk_lists(rq_index.n_lists, rq_index.max_list,
+                                                        rq_index.rot_dim, 1024))
+    before = b3.launches
+    auto = ivf_pq.search(rq_index, Qt[:128], k, rq)
+    fused = uncounted(lambda: ivf_pq.search(rq_index, Qt[:128], k, rq, mode="fused"))
+    rule = ivf_common.auto_search_mode(rq_index.device, 128, True, algo="ivf_pq")
+    emit(card, phase="multi", metric="rabitq_auto_on_cuda", rule_at_128=rule,
+         b3_launches=b3.launches - before)
+    if rule != "fused" or b3.launches - before < 1 or not torch.equal(auto[1], fused[1]):
+        raise AssertionError("RaBitQ auto on the CUDA index no longer takes B3 from 128 queries")
+
+    # (f) tiered sharded serving: the raw rows in per-shard host tiers
+    pq_params = ivf_pq.IvfPqSearchParams(n_probes=30)
+    r = hbm_model.residency_for_index("sharded_pq", "ivf_pq", pq_index, refine_rows=n)
+    req = sum(c_.per_shard_bytes(mesh.size) for c_ in r.components if c_.required)
+    raw = sum(c_.per_shard_bytes(mesh.size) for c_ in r.components if not c_.required)
+    _, stage_dev = hbm_model.staging_footprint(d)
+    budget = int((req + stage_dev + raw // 2) / hbm_model.HBM_HEADROOM)
+    t_eng = ServingEngine(max_batch=128, max_wait_ms=2.0, queue_capacity=nq, res=res,
+                          hbm_budget_bytes=budget)
+    _, snap = with_obs(lambda: t_eng.register("pq", "sharded_ivf_pq_lists", pq_index,
+                                              params=pq_params, mesh=mesh, dataset=X_card,
+                                              merge_mode="ring"))
+    degrades = snap["counters"].get(
+        'serve.tiered_degrades{algo="sharded_ivf_pq_lists",index_id="pq"}', 0.0)
+    reg = t_eng._indexes["pq"]
+    placement = t_eng.sharded_placements["pq"]
+    emit(card, phase="multi", metric="sharded_placement", hbm_budget_bytes_per_shard=budget,
+         required_bytes_per_shard=req, raw_vectors_bytes_per_shard=raw,
+         raw_vectors_tier=placement.tier("pq", "raw_vectors"), algo=reg.algo,
+         tiered_degrades=degrades, table=placement.table().splitlines())
+    if reg.algo != "tiered_sharded" or degrades != 1.0:
+        raise AssertionError(f"the per-shard budget {budget} B did not convert the registration "
+                             f"to tiered_sharded ({reg.algo}, degrades {degrades})")
+    tsi = reg.index
+    kk = k * tsi.refine_ratio
+    emit(card, phase="multi", metric="sharded_host_tier", bytes=tsi.tier.nbytes,
+         rows_per_shard=[st.size for st in tsi.tier.stores], refine_ratio=tsi.refine_ratio)
+
+    def resident_search(q):
+        _, cand = sharded_ivf_pq_lists_search(mesh, pq_index, q, kk, pq_params,
+                                              merge_mode="ring")
+        return refine(X_card, q, cand, k, metric=pq_index.metric)
+
+    t_eng.warmup("pq", k)
+    before_f = b6.launches
+    one_sizes = sizes_to(sizes, 2048)
+    one = []
+    t0 = time.perf_counter()
+    for s, m in zip(starts, one_sizes):
+        fut = t_eng.submit("pq", Q[s:s + m], k)
+        t_eng.step(force=True)
+        one.append(fut.result())
+    one_s = time.perf_counter() - t0
+    for r_, s, m in zip(one, starts, one_sizes):
+        padded = torch.zeros((r_.bucket, d), device=dev)
+        padded[:m] = Qt[s:s + m]
+        dv, iv = uncounted(lambda: resident_search(padded))
+        if not (np.array_equal(r_.indices, iv[:m].cpu().numpy())
+                and np.array_equal(r_.distances.view(np.int32), dv[:m].cpu().numpy().view(np.int32))):
+            raise AssertionError("a tiered sharded request served alone is not bit-equal to the "
+                                 "resident sharded search plus refine of its padded batch")
+
+    def resident_backlog():
+        """The engine's backlog batches, padded to their buckets, through the
+        resident sharded search plus refine (no engine: the resident path has
+        no registration of its own)."""
+        for batch in backlog_batches(sizes):
+            q = np.concatenate([Q[starts[i]:starts[i] + sizes[i]] for i in batch])
+            padded = torch.zeros((bucket_for(q.shape[0], 128), d), device=dev)
+            padded[:q.shape[0]] = torch.from_numpy(q).to(dev)
+            resident_search(padded)[1].cpu()
+
+    runs, results = {}, None
+    for which in ("resident", "tiered", "tiered", "resident"):
+        if which == "tiered":
+            futs, secs = backlog(t_eng, "pq", Q, sizes, k)
+            results = [f.result() for f in futs]
+        else:
+            _, secs = timed_build(lambda: uncounted(resident_backlog))
+        runs.setdefault(which, []).append(nq / secs)
+    batches = uncounted(lambda: check_served_batches(
+        "tiered sharded IVF-PQ backlog", Q, sizes, results, resident_search, dev))
+    ids, _, _ = served(results, n)
+    busy = profile_backlog(card, t_eng, "pq", Q, starts, sizes, k, None, phase="multi")
+    emit(card, phase="multi", metric="tiered_sharded_serve", one_client_qps=sum(one_sizes) / one_s,
+         one_client_rows=sum(one_sizes), backlog_qps_tiered=runs["tiered"],
+         resident_path_qps=runs["resident"],
+         tiered_over_resident=float(np.median(runs["tiered"]) / np.median(runs["resident"])),
+         recall=neighborhood_recall(torch.from_numpy(ids), gt_i), batches_bit_equal=batches,
+         requests_bit_equal=len(one), b6_launches=b6.launches - before_f, busy_share=busy,
+         plan_explain=t_eng.plan_explain("pq").splitlines())
+    if b6.launches - before_f <= 0:
+        raise AssertionError("tiered sharded serving never launched fused_ring_topk")
+    # shard 2's host tier lost: coverage 0.75, none of its rows
+    lost = sizes_to(sizes, 2048)
+    with faults.injected("host.fetch", error=OSError("host tier lost"), match={"shard": 2}):
+        futs, _ = backlog(t_eng, "pq", Q, lost, k)
+        degraded = [f.result() for f in futs]
+        t_eng.register("floor", "tiered_sharded", tsi, min_coverage=0.9)
+        ffuts = [t_eng.submit("floor", Q[s:s + m], k) for s, m in zip(starts[:4], lost[:4])]
+        t_eng.run_until_idle()
+    typed = sum(isinstance(f.exception(), ShardFailure) for f in ffuts)
+    ids = np.concatenate([r_.indices for r_ in degraded])
+    owners = tsi.tier.owner[ids[ids >= 0]]
+    emit(card, phase="multi", metric="tiered_sharded_tier_lost", shard=2,
+         coverage=sorted({r_.coverage for r_ in degraded}),
+         failed_shards=sorted({r_.failed_shards for r_ in degraded}),
+         ids_of_lost_shard=int((owners == 2).sum()),
+         recall=neighborhood_recall(torch.from_numpy(ids), gt_i[:sum(lost)]),
+         min_coverage_futures_failed_typed=typed, min_coverage_futures=len(ffuts))
+    if ({r_.coverage for r_ in degraded} != {0.75}
+            or {r_.failed_shards for r_ in degraded} != {(2,)} or (owners == 2).any()
+            or typed != len(ffuts)):
+        raise AssertionError("shard 2's lost host tier did not give coverage 0.75, "
+                             "failed_shards (2,) and none of its ids on every result, or the "
+                             "min_coverage futures did not fail typed")
+
+    # (g) the comms verbs added in this slice, each rank against numpy
+    n_s = mesh.size
+    blocks = np.random.default_rng(11).standard_normal((n_s, 5, 3)).astype(np.float32)
+    xs = [torch.from_numpy(blocks[r]).to(dev) for r in range(n_s)]
+    sq = [torch.from_numpy(np.stack([blocks[r] + 10 * j for j in range(n_s)])).to(dev)
+          for r in range(n_s)]
+    checks = {}
+    g = comms.gather(mesh, xs, root=1)
+    checks["gather"] = all(np.array_equal(g[r].cpu().numpy(), blocks if r == 1 else
+                                          np.zeros_like(blocks)) for r in range(n_s))
+    gv = comms.gatherv(mesh, xs, [0, 2, 5, 1], root=3)
+    checks["gatherv"] = (np.array_equal(gv[3][0].cpu().numpy(), blocks)
+                         and gv[3][1].cpu().tolist() == [0, 2, 5, 1]
+                         and not any(gv[r][0].any() or gv[r][1].any() for r in range(3)))
+    sc = comms.scatter(mesh, sq, root=2)
+    checks["scatter"] = all(np.array_equal(sc[r].cpu().numpy(), blocks[2] + 10 * r)
+                            for r in range(n_s))
+    sr = comms.device_sendrecv(mesh, xs, [(0, 3)])
+    checks["device_sendrecv"] = (np.array_equal(sr[0].cpu().numpy(), blocks[3])
+                                 and np.array_equal(sr[3].cpu().numpy(), blocks[0])
+                                 and not (sr[1].any() or sr[2].any()))
+    mc = comms.multicast_sendrecv(mesh, xs, [(1, 0), (1, 2), (3, 3)])
+    checks["multicast_sendrecv"] = (all(np.array_equal(mc[dd].cpu().numpy(), blocks[s])
+                                        for s, dd in ((1, 0), (1, 2), (3, 3)))
+                                    and not mc[1].any())
+    checks["comm_rank"] = [int(x) for x in comms.comm_rank(mesh)] == list(range(n_s))
+    own = Resources(device="cuda")
+    m2 = comms.init_comms(own, devices=["cuda:0"] * n_s)
+    checks["init_comms"] = own.get_mesh() is m2 and m2.size == n_s
+    checks["comm_split"] = comms.comm_split(m2, "data") == {"axis": "data", "size": n_s}
+    emit(card, phase="multi", metric="comms_verbs", shards=n_s, checks=checks)
+    if not all(checks.values()):
+        raise AssertionError(f"comms verbs against numpy: {checks}")
+    launches = {f.__name__: f.launches for f in kernels}
+    emit(card, phase="multi", metric="phase_s", value=time.perf_counter() - t_phase,
+         launches=launches)
+    return launches
+
+
 def bucket_sizes_to(top: int) -> list:
     """1, 2, 4, ... ``top``."""
     return [1 << i for i in range(top.bit_length())]
@@ -2557,7 +2934,7 @@ def sizes_to(sizes, rows: int) -> list:
 
 #: the parts ``--phases`` runs alone
 PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable", "robust",
-               "tiered")
+               "tiered", "multi")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
@@ -2578,8 +2955,9 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
     4 and 6 build them, or with ``compare`` (``--tree`` given) only the
     sharded backlog's QPS (:func:`sharded_serve_qps`); ``tiered``: phase 10
     (:func:`tiered_phase`) on phase 3's data and the indexes of phases 3, 4
-    and 6 (the CAGRA one after a fused search). Each builds the kernels it
-    launches first. ``tree`` is the tree whose
+    and 6 (the CAGRA one after a fused search); ``multi``: phase 11
+    (:func:`multi_phase`) on phase 3's data and the indexes of phases 4, 5
+    and 6. Each builds the kernels it launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
@@ -2740,6 +3118,30 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
             itopk_size=128, search_width=8, dedup="post", init_sample=SERVE_INIT_SAMPLE),
             mode="fused")
         tiered_phase(card, res, index, pq_index, cg, X, X_card, Q, gt_i, 10, sizes, mem, ptxas)
+    if "multi" in parts:
+        from raft_tpu_torch.neighbors import cagra
+        from raft_tpu_torch.ops import pq_scan
+
+        mods = {"fused_pq_topk": pq_scan, "fused_rabitq_topk": rabitq_scan, "ring_topk": rt}
+        with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
+            builds = {name: ex.submit(mod.build_kernel, True) for name, mod in mods.items()}
+            for name, f in builds.items():
+                emit(card, phase="build", kernel=name, build_s=f.result()[1])
+        res = Resources(device="cuda", seed=seed)
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
+        gen = Clustered(rng, 128, 4096)
+        X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        sizes = request_sizes(rng, Q.shape[0])
+        _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
+        X_card = torch.from_numpy(X).cuda()
+        pq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024), res=res)
+        rq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024, pq_bits=1), res=res)
+        cg = cagra.build(X_card, cagra.CagraIndexParams(intermediate_graph_degree=32,
+                                                        graph_degree=16, build_algo="ivf_pq"),
+                         res=res, pq_index=pq_index)
+        multi_phase(card, res, X, X_card, Q, gt_i, 10, sizes, pq_index, cg, rq_index)
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -3024,7 +3426,7 @@ def main() -> int:
         profile_backlog(card, eng, "sift1m_pq", Q, starts, sizes, k, "serve_pq_backlog_trace.json")
 
     # ---- phase 5: RaBitQ ---------------------------------------------------
-    rq_launches, b3 = rabitq_phase(card, res, X, X_card, Qt, gt_i, k, kk, max_err)
+    rq_launches, b3, rq_index = rabitq_phase(card, res, X, X_card, Qt, gt_i, k, kk, max_err)
 
     # ---- phase 6: CAGRA at full width --------------------------------------
     cagra_search.cagra_fused_search.launches = 0
@@ -3288,6 +3690,9 @@ def main() -> int:
     tiered = tiered_phase(card, res, index, pq_index, cg, X, X_card, Q, gt_i, k, sizes, mem,
                           ptxas)
 
+    # ---- phase 11: the distributed build, query-sharded and tiered sharded --
+    multi = multi_phase(card, res, X, X_card, Q, gt_i, k, sizes, pq_index, cg, rq_index)
+
     rows = []
     for name, src, line, launches, t in (
             ("fused_list_topk", "ivf_scan.cu", "raft_tpu/ops/pallas/ivf_scan.py:321", flat_launches, b1),
@@ -3311,6 +3716,8 @@ def main() -> int:
                             launches_mutable_delta=mutable["serve"]["b1_launches_delta"])
         if name in tiered:  # phase 10: the host tier's scans
             rows[-1]["launches_tiered"] = tiered[name]
+        if name in multi:  # phase 11's (b)-(f)
+            rows[-1]["launches_multi"] = multi[name]
         if name == "hop_merge":  # on one card B5's folds run inside B6's and B7's launches
             rows[-1]["folds_inside_rings"] = folds
         if name == "fused_ring_topk":  # phase 9's backlog with shard 2 down

@@ -38,11 +38,15 @@ class Resources:
     ``seed``: seeds the resource-owned ``torch.Generator``.
     ``workspace_bytes``: byte budget batching heuristics may assume for
     temporaries (1 GiB, as in the JAX package).
+    ``mesh``: the :class:`raft_tpu_torch.parallel.Mesh` that
+    :func:`raft_tpu_torch.parallel.init_comms` installs, read back through
+    :meth:`get_mesh` (``resource::get_comms``).
     """
 
     device: Union[None, str, torch.device] = None
     seed: int = 0
     workspace_bytes: int = 1 << 30
+    mesh: Optional[object] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -55,6 +59,15 @@ class Resources:
         if self.device.type != "cuda":
             return None
         return torch.cuda.current_stream(self.device)
+
+    def get_mesh(self):
+        """The installed mesh; raises when none is set."""
+        if self.mesh is None:
+            raise LogicError(
+                "no mesh set on Resources; call raft_tpu_torch.parallel.init_comms() or pass "
+                "mesh= explicitly"
+            )
+        return self.mesh
 
     def sync(self) -> None:
         """Block until all queued work on this device is complete."""

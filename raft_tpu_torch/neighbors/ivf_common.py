@@ -16,16 +16,9 @@ from typing import Iterable, Tuple
 
 import torch
 
-from raft_tpu_torch.core.errors import fail
 from raft_tpu_torch.ops.distance import DistanceType
 from raft_tpu_torch.ops.select_k import running_merge, select_k, worst_value
 from raft_tpu_torch.utils.math import round_up
-
-
-def scan_mode_not_ported(algo: str) -> None:
-    """Raise for a ``mode="scan"`` the port does not have yet."""
-    fail("%s: mode='scan' (the dense scan over all lists) is not ported yet; use "
-         "mode='fused', 'probe' or 'auto'", algo)
 
 
 def auto_search_mode(device: torch.device, nq: int, fused_ok: bool, scan_ok: bool = True,
@@ -58,7 +51,7 @@ def auto_scan(device, scan_ok: bool = True) -> Tuple[bool, str]:
     (``scan_ok``: the index has one), and the planner's reason when not."""
     if torch.device(device).type == "cuda":
         return False, "auto leaves the dense scan to mode='scan' on a CUDA index"
-    return scan_ok, "no dense scan for this index (RaBitQ's comes with queue A5)"
+    return scan_ok, "no dense scan for this index"
 
 
 #: candidates (rows x columns) one merge of :func:`merge_probes` takes at most

@@ -27,11 +27,11 @@ Search modes:
   every list chunk decoded from the codebooks and scored by one matmul,
   unprobed lists and empty slots masked, an exact top-k; the per-shard
   core of :func:`raft_tpu_torch.parallel.sharded_ivf_pq_lists_search`.
-  RaBitQ's scan (``rabitq_scan_core``) is not ported yet and raises.
+  For RaBitQ (:func:`rabitq_scan_core`) each chunk's sign bits and one FP32
+  product give the estimator.
 * ``"probe"`` — per-probe f32 LUT gather + running merge.
 * ``"auto"`` — from 128 queries, fused on a CUDA index when eligible and
-  scan on any other device (probe for RaBitQ, whose scan is not ported);
-  else probe.
+  scan on any other device; else probe.
 
 With ``dataset=`` and ``refine_ratio > 1`` (the default 8) search keeps
 ``k * refine_ratio`` candidates and re-ranks them with exact distances.
@@ -932,6 +932,100 @@ def _ivf_pq_scan_impl(centers, rotation, pq_centers, codes, list_indices, rot_sq
                                     per_cluster=per_cluster, chunk_lists=chunk_lists, bf16=bf16))
 
 
+#: scratch of one chunk of the RaBitQ scan on the card: its sign bits as
+#: f32, the bit product and the scores
+RABITQ_SCAN_CHUNK_BYTES = 256 << 20
+
+
+def rabitq_scan_chunk_lists(n_lists: int, max_list: int, rot_dim: int, nq: int) -> int:
+    """Lists per chunk of the RaBitQ scan: at most :func:`scan_chunk_lists`'s
+    and as many as keep the chunk's scratch (``[rows, rot_dim]`` f32 bits,
+    ``[nq, rows]`` f32 products and scores) under
+    :data:`RABITQ_SCAN_CHUNK_BYTES`, rounded down to a divisor of
+    ``n_lists``. The chunking does not change the result: each chunk's
+    shortlist holds its exact top-k, merged in slot order."""
+    rows = RABITQ_SCAN_CHUNK_BYTES // (4 * rot_dim + 8 * max(nq, 1))
+    g = max(1, min(scan_chunk_lists(n_lists, max_list), rows // max(max_list, 1)))
+    while n_lists % g:
+        g -= 1
+    return g
+
+
+def rabitq_scan_core(codes, corrections, list_indices, rot_sqnorms, q_rot, q_dot_c, probed,
+                     filter_bits, *, k: int, metric: DistanceType,
+                     chunk_lists: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RaBitQ dense scan over (a shard of) the lists
+    (``ivf_pq.py:1338-1434``): per chunk of ``chunk_lists`` lists the sign
+    bits as f32 and one ``[nq, rot_dim] x [rot_dim, rows]`` FP32 product,
+    then the estimator as a score to maximize::
+
+        score = g (b.q_rot - sum(q_rot) / 2) - C1 + coef (q.c)
+
+    (coef 2 for L2, 1 for IP); empty, filtered and unprobed slots get
+    ``-inf``. A ``max(2k, 16)`` shortlist a chunk is merged into the running
+    top-k exactly (``lax.top_k``'s tie order, as :func:`pq_scan_core`).
+    L2 returns ``max(||q||^2 - score, 0)`` (its root for L2Sqrt), IP the
+    score. Returns ``(distances, ids)``."""
+    nq, D = q_rot.shape
+    n_lists, max_list, _ = codes.shape
+    G, M = chunk_lists, max_list
+    expects(n_lists % G == 0, "chunk_lists %d does not divide %d lists", G, n_lists)
+    dev = q_rot.device
+    sq = torch.sum(q_rot, dim=1)
+    coef = 1.0 if metric == DistanceType.InnerProduct else 2.0
+    acc_v = torch.full((nq, k), float("-inf"), dtype=torch.float32, device=dev)
+    acc_i = torch.zeros((nq, k), dtype=torch.int32, device=dev)
+    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    for c in range(n_lists // G):
+        lo, hi = c * G, (c + 1) * G
+        bits = sign_bits(codes[lo:hi].reshape(G * M, -1)).to(torch.float32)  # [G*M, D]
+        bq = q_rot @ bits.T
+        del bits
+        gg = corrections[lo:hi].reshape(G * M)
+        c1 = rot_sqnorms[lo:hi].reshape(G * M)
+        score = gg[None, :] * (bq - 0.5 * sq[:, None]) - c1[None, :]
+        del bq
+        pad_pen = torch.where(ivf_common.valid_slots(list_indices[lo:hi].reshape(G * M),
+                                                     filter_bits), 0.0, neg_inf)
+        probe_pen = torch.where(probed[:, lo:hi], coef * q_dot_c[:, lo:hi], neg_inf)
+        score.view(nq, G, M).add_(probe_pen[:, :, None])
+        score.add_(pad_pen[None, :])
+        kk = min(max(2 * k, 16), G * M)
+        v, i = select_k(score, kk, select_min=False)
+        del score
+        nv, ni = select_k(torch.cat([acc_v, v], dim=1), k, select_min=False)
+        acc_i = torch.gather(torch.cat([acc_i, i + c * G * M], dim=1), 1, ni.to(torch.int64))
+        acc_v = nv
+    idx = list_indices.reshape(-1)[acc_i.to(torch.int64).reshape(-1)].reshape(nq, k)
+    idx = torch.where(torch.isfinite(acc_v), idx, -1).to(torch.int32)
+    if metric == DistanceType.InnerProduct:
+        return acc_v, idx
+    qn = torch.sum(q_rot * q_rot, dim=1)
+    out = torch.clamp(qn[:, None] - acc_v, min=0.0)
+    if metric == DistanceType.L2SqrtExpanded:
+        out = torch.sqrt(out)
+    return torch.where(idx >= 0, out, float("inf")), idx
+
+
+def _ivf_rabitq_scan_impl(centers, rotation, codes, corrections, list_indices, rot_sqnorms,
+                          queries, filter_bits, *, k: int, n_probes: int, metric: DistanceType):
+    """The RaBitQ dense scan of one query batch (``ivf_pq.py:1280-1335``):
+    the coarse product and probe mask, the rotated queries, then
+    :func:`rabitq_scan_core` under the ``ivf_pq.search.rabitq_xla`` span."""
+    nq = queries.shape[0]
+    qf = queries.to(torch.float32)
+    with obs.span("ivf_pq.search.coarse_probe", nq=nq, n_probes=n_probes) as sp:
+        q_dot_c = qf @ centers.T
+        probed = sp.sync(ivf_common.probed_from_coarse(
+            ivf_common.coarse_from_dots(q_dot_c, centers, metric), n_probes))
+    q_rot = qf @ rotation.T
+    g = rabitq_scan_chunk_lists(codes.shape[0], codes.shape[1], q_rot.shape[1], nq)
+    with obs.span("ivf_pq.search.rabitq_xla", nq=nq, k=k) as sp:
+        return sp.sync(rabitq_scan_core(codes, corrections, list_indices, rot_sqnorms, q_rot,
+                                        q_dot_c, probed, filter_bits, k=k, metric=metric,
+                                        chunk_lists=g))
+
+
 def fused_rank_group(index: IvfPqIndex, params: IvfPqSearchParams) -> Tuple[torch.Tensor, int]:
     """``(center_rank, lists per unit)`` of the fused scan: the index's rank
     and ``fused_group``, or for an index without a rank (saved before v3)
@@ -1091,16 +1185,15 @@ def _search_dispatch(index: IvfPqIndex, queries, k: int, params: Optional[IvfPqS
 
 def _rabitq_modes(index: IvfPqIndex, queries, k: int, params: IvfPqSearchParams, filter_bits,
                   n_probes: int, query_batch: int, mode: str):
-    """Mode routing for RaBitQ indexes: the same fused/probe pair, backed
-    by kernel B3 and the probe-at-a-time estimator."""
+    """Mode routing for RaBitQ indexes: the same fused / scan / probe trio,
+    backed by kernel B3, the dense sign-bit scan (:func:`rabitq_scan_core`)
+    and the probe-at-a-time estimator."""
     fused_ok = index.metric in _SUPPORTED
-    if mode == "scan":
-        ivf_common.scan_mode_not_ported("ivf_pq (rabitq)")
     if mode == "auto":
-        # no RaBitQ scan yet: a CPU index takes the probe path
         mode = ivf_common.auto_search_mode(index.device, queries.shape[0], fused_ok,
-                                           scan_ok=False, algo="ivf_pq")
-    expects(mode in ("probe", "fused"), "mode must be auto|probe|fused, got %r", mode)
+                                           algo="ivf_pq")
+    expects(mode in ("scan", "probe", "fused"), "mode must be auto|scan|probe|fused, got %r",
+            mode)
     nq = queries.shape[0]
     if obs.is_enabled():
         obs.inc("ivf_pq.search.calls", mode=mode, lut="rabitq")
@@ -1124,6 +1217,15 @@ def _rabitq_modes(index: IvfPqIndex, queries, k: int, params: IvfPqSearchParams,
         faults.fire("pallas.pq_scan", nq=int(nq))
         with obs.span("ivf_pq.search.rabitq_scan", nq=nq, k=k, n_probes=n_probes) as sp:
             return sp.sync(_batched(run, queries, query_batch))
+    if mode == "scan":
+
+        def run_scan(qc):
+            return _ivf_rabitq_scan_impl(
+                index.centers, index.rotation, index.codes, index.corrections,
+                index.list_indices, index.rot_sqnorms, qc, filter_bits, k=k, n_probes=n_probes,
+                metric=index.metric)
+
+        return _batched(run_scan, queries, query_batch)
     # the unpacked bits are [batch, max_list, D] f32: cap as the PQ probe path
     per_q = max(1, index.rot_dim * index.max_list * 4)
     query_batch = max(1, min(query_batch, (512 << 20) // per_q))

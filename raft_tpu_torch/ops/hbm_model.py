@@ -568,9 +568,9 @@ def plan_placement_sharded(
     staging_micro_batch: int = STAGING_MICRO_BATCH,
     staging_n_cand: int = STAGING_N_CAND,
 ) -> ShardedPlacement:
-    """Per-shard placement over the three-level hierarchy the pod-scale
-    tier composition (``tiered/sharded.py``, queue A5) serves from: device HBM, the shard host's RAM, and
-    the shard host's disk.
+    """Per-shard placement over the three-level hierarchy the tiered sharded
+    index (:class:`raft_tpu_torch.tiered.TieredShardedIndex`) serves from:
+    device HBM, the shard host's RAM, and the shard host's disk.
 
     Replicated components (coarse centroids, rotation, PQ codebook —
     see :attr:`HbmComponent.replicated`) cost their FULL size on every

@@ -22,8 +22,11 @@ a verb over the per-shard tensor lists.
   sharded entry points call both.
 
 CPU meshes (``["cpu"] * n``) run the same code with plain copies; the
-tests use them. Multi-host bootstrap (``parallel/bootstrap.py`` over
-``torch.distributed``) is not ported.
+tests use them. :func:`init_comms` installs a mesh on
+:class:`~raft_tpu_torch.core.resources.Resources`; :func:`comm_split` names
+a sub-communicator (an axis and its size). Multi-host bootstrap
+(``parallel/bootstrap.py`` over ``torch.distributed``) and meshes of more
+than one axis are not ported.
 
 With :mod:`raft_tpu_torch.obs` enabled every public verb counts
 ``comms.{verb}.calls{axis}`` and ``comms.{verb}.bytes{axis}`` (one shard's
@@ -152,10 +155,36 @@ def make_mesh(devices: Optional[Sequence] = None,
     return Mesh(devs, axis_names)
 
 
+def init_comms(res=None, devices: Optional[Sequence] = None,
+               axis_names: Sequence[str] = (DEFAULT_AXIS,)) -> Mesh:
+    """Make a mesh (:func:`make_mesh`) and install it on the resources
+    handle (``inject_comms_on_handle``); returns the mesh."""
+    from raft_tpu_torch.core.resources import ensure_resources
+
+    res = ensure_resources(res)
+    mesh = make_mesh(devices, axis_names)
+    res.mesh = mesh
+    return mesh
+
+
 def comm_size(mesh: Mesh, axis: str = DEFAULT_AXIS) -> int:
     """Number of shards along ``axis`` (``comms_t::get_size``)."""
     expects(axis in mesh.axis_names, "axis %r not in mesh axes %s", axis, mesh.axis_names)
     return mesh.size
+
+
+def comm_rank(mesh: Mesh, axis: str = DEFAULT_AXIS) -> List[torch.Tensor]:
+    """Each shard's rank along ``axis`` (``comms_t::get_rank``): an int32
+    scalar a shard, on its device."""
+    comm_size(mesh, axis)
+    return [torch.tensor(r, dtype=torch.int32, device=d) for r, d in enumerate(mesh.devices)]
+
+
+def comm_split(mesh: Mesh, axis: str) -> dict:
+    """The sub-communicator along ``axis`` (``comms_t::comm_split``): its
+    name and size, which the verbs take."""
+    expects(axis in mesh.axis_names, "axis %s not in mesh axes %s", axis, mesh.axis_names)
+    return {"axis": axis, "size": mesh.shape[axis]}
 
 
 # -- placement ------------------------------------------------------------------
@@ -389,3 +418,87 @@ def barrier(mesh: Mesh) -> List[torch.Tensor]:
         with mesh.on(r):
             ones.append(torch.ones((), dtype=torch.int32, device=mesh.devices[r]))
     return _allreduce(mesh, ones)
+
+
+def _gather(mesh: Mesh, xs: Sequence[torch.Tensor], root: int) -> List[torch.Tensor]:
+    """:func:`gather` without its counters (:func:`gatherv`'s two halves)."""
+    _check_parts(mesh, xs)
+    mesh.fork()
+    out = []
+    for r in range(mesh.size):
+        with mesh.on(r):
+            if r == root:
+                out.append(torch.stack(_gathered(mesh, xs, r), dim=0))
+            else:
+                out.append(torch.zeros((mesh.size,) + tuple(xs[r].shape), dtype=xs[r].dtype,
+                                       device=mesh.devices[r]))
+    mesh.join()
+    return out
+
+
+@_instrumented("gather")
+def gather(mesh: Mesh, xs: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:
+    """``comms_t::gather``: ``root`` receives every shard's block stacked on
+    a new leading rank axis, every other shard zeros of that shape."""
+    return _gather(mesh, xs, root)
+
+
+@_instrumented("gatherv")
+def gatherv(mesh: Mesh, xs: Sequence[torch.Tensor], valid_n: Sequence[int],
+            root: int = 0) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``comms_t::gatherv``: each shard passes a padded block ``[cap, ...]``
+    and its true row count; ``root`` receives ``(blocks [n, cap, ...],
+    sizes [n] i32)``, every other shard zeros of those shapes."""
+    expects(len(valid_n) == mesh.size, "%d row counts for %d shards", len(valid_n), mesh.size)
+    sizes = [torch.as_tensor(v, dtype=torch.int32).to(d) for v, d in zip(valid_n, mesh.devices)]
+    return list(zip(_gather(mesh, xs, root), _gather(mesh, sizes, root)))
+
+
+@_instrumented("scatter")
+def scatter(mesh: Mesh, xs: Sequence[torch.Tensor], root: int = 0) -> List[torch.Tensor]:
+    """The inverse of :func:`gather`: every shard passes a ``[n, ...]``
+    buffer and shard ``r`` receives ``root``'s block ``r``. It is a
+    :func:`bcast` of ``root``'s buffer (counted too, as in the JAX
+    package), each shard keeping its own block."""
+    full = bcast(mesh, xs, root=root)
+    out = []
+    for r in range(mesh.size):
+        with mesh.on(r):
+            out.append(full[r][r])
+    return out
+
+
+@_instrumented("device_sendrecv")
+def device_sendrecv(mesh: Mesh, xs: Sequence[torch.Tensor],
+                    partner_of: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``comms_t::device_sendrecv``: each ``(a, b)`` pair exchanges blocks,
+    ``a -> b`` and ``b -> a`` at once; a shard in no pair receives zeros."""
+    perm = []
+    for a, b in partner_of:
+        perm += [(a, b), (b, a)]
+    return _ppermute(mesh, xs, perm)
+
+
+@_instrumented("multicast_sendrecv")
+def multicast_sendrecv(mesh: Mesh, xs: Sequence[torch.Tensor],
+                       pairs: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``comms_t::device_multicast_sendrecv``: for each ``(src, dst)`` pair
+    ``dst`` receives ``src``'s block; one source may feed several
+    destinations (the last pair naming a destination wins), and a shard
+    named by no pair receives zeros."""
+    _check_parts(mesh, xs)
+    src_of = [-1] * mesh.size
+    for s, d in pairs:
+        src_of[d] = s
+    mesh.fork()
+    out = []
+    for d, s in enumerate(src_of):
+        if s == d:
+            out.append(xs[d])
+        elif s >= 0:
+            out.append(peer_copy(mesh, xs[s], s, d))
+        else:
+            with mesh.on(d):
+                out.append(torch.zeros_like(xs[d]))
+    mesh.join()
+    return out

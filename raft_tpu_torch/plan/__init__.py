@@ -6,10 +6,11 @@ the IVF search engine (``neighbors/ivf_common.auto_search_mode``, for
 IVF-Flat and IVF-PQ), the CAGRA beam engine (``cagra.search``), the
 cross-shard merge engine (``sharded_ann._resolve_merge_mode``), the mutable
 delta engine (``segments._delta_route``), the PQ code family
-(``ivf_pq._resolve_kind``) and the serving engine's per-registration plan.
-The distributed-build exchange (:func:`plan_comm_mode`) and the sparse
-pairwise engine (:func:`plan_sparse_mode`) are resolvers whose call sites
-come with the modules that need them (queue A5 and A7). Each resolver
+(``ivf_pq._resolve_kind``), the distributed build's accumulator exchange
+(``sharded_ann._resolve_comm_mode``) and the serving engine's
+per-registration plan. The sparse pairwise engine
+(:func:`plan_sparse_mode`) is a resolver whose call site comes with the
+sparse module, not ported yet. Each resolver
 enumerates the eligible candidates, prices them
 (:mod:`raft_tpu_torch.plan.cost`) and returns an explainable :class:`Plan`.
 

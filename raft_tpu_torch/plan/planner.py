@@ -15,10 +15,10 @@ Where the port differs from the JAX package by design:
 
 * ``on_tpu`` is ``on_cuda`` (:func:`on_cuda`): the kernels' candidate is
   eligible on a CUDA device of compute capability 9.x;
-* :func:`plan_search_mode` takes the eligibility of ``scan``: RaBitQ has no
-  dense scan in the port until queue A5, and ``auto`` on a CUDA index
-  leaves the dense scan to an explicit ``mode="scan"`` (where the kernel
-  cannot serve, the probe path runs), as the port's inline rule does.
+* :func:`plan_search_mode` takes the eligibility of ``scan``: ``auto`` on
+  a CUDA index leaves the dense scan to an explicit ``mode="scan"`` (where
+  the kernel cannot serve, the probe path runs), as the port's inline rule
+  does.
 
 Parity: with the gate off (``RAFT_TPU_PLAN=0``) every call site runs its
 inline rule; with it on, the JAX package's coefficients make each resolver

@@ -43,9 +43,13 @@ the scan stays on the card and each batch's winners' rows come from host
 RAM, with the resident results' bits. Scan components that do not fit fail
 the registration typed. ``algo="tiered"`` registers a pre-built
 :class:`~raft_tpu_torch.tiered.TieredIndex`. A sharded registration with a
-dataset is planned per shard; where the JAX engine would convert it to
-``tiered_sharded`` the registration fails typed, since the sharded host
-tier (``tiered/sharded.py``) comes with queue A5.
+dataset is planned per shard (``plan_placement_sharded``): a refine slab
+that cannot stay on each shard's device converts the registration to
+``tiered_sharded``, a :class:`~raft_tpu_torch.tiered.TieredShardedIndex`
+whose per-shard host tiers follow the lists' ownership
+(``serve.tiered_degrades``); ``algo="tiered_sharded"`` registers a pre-built
+one. Its batches run behind the timed shard-health probe, and a dead host
+tier costs coverage as a failed shard does.
 
 Planning: with the planner's gate on (``RAFT_TPU_PLAN``, on by default)
 every registration carries a :class:`~raft_tpu_torch.plan.RegistrationPlan`
@@ -89,18 +93,21 @@ from raft_tpu_torch.serve.bucketing import (
 )
 
 #: algo name -> default dispatch mode at registration ("tiered": a pre-built
-#: TieredIndex, the device scan and the host-tier re-rank)
+#: TieredIndex, the device scan and the host-tier re-rank; "tiered_sharded":
+#: a TieredShardedIndex, pre-built or converted at registration)
 _DEFAULT_MODES = {"brute_force": "exact", "ivf_flat": "auto", "ivf_pq": "auto", "cagra": "auto",
                   "sharded_ivf_flat": "sharded", "sharded_ivf_pq_lists": "sharded",
-                  "tiered": "auto"}
+                  "tiered": "auto", "tiered_sharded": "sharded"}
 
 #: algos the placement planner models (and whose refine dataset can spill
 #: to the host tier)
 _TIERABLE_ALGOS = ("ivf_pq", "ivf_flat", "brute_force")
 
-#: sharded algos whose refine dataset the per-shard planner models, and
-#: the residency model each uses
-_SHARDED_TIERABLE = {"sharded_ivf_flat": "ivf_flat", "sharded_ivf_pq_lists": "ivf_pq"}
+#: sharded algos whose refine dataset can move to per-shard host tiers (the
+#: registration converts to "tiered_sharded"): the residency model each
+#: uses and its TieredShardedIndex scan
+_SHARDED_TIERABLE = {"sharded_ivf_flat": ("ivf_flat", "ivf_flat"),
+                     "sharded_ivf_pq_lists": ("ivf_pq", "ivf_pq_lists")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,8 +216,8 @@ class ServingEngine:
                  **search_kwargs) -> None:
         """Register ``index`` (``algo`` = ``brute_force`` | ``ivf_flat`` |
         ``ivf_pq`` | ``cagra`` | ``sharded_ivf_flat`` |
-        ``sharded_ivf_pq_lists`` | ``tiered``). ``params``/``mode``/
-        ``search_kwargs`` are pinned at registration; ``dataset`` enables
+        ``sharded_ivf_pq_lists`` | ``tiered`` | ``tiered_sharded``).
+        ``params``/``mode``/``search_kwargs`` are pinned at registration; ``dataset`` enables
         integrated refine (for ``ivf_pq`` at the params' ``refine_ratio``, 8
         by default). The sharded algos need ``mesh`` (their lists are split
         over its ``axis``), take ``min_coverage`` as their floor (below it a
@@ -225,16 +232,27 @@ class ServingEngine:
         registered indexes is rewrapped as a
         :class:`~raft_tpu_torch.tiered.HostVectorStore`, so the registration
         serves tiered instead of overfilling the card; scan components that
-        do not fit raise ``LogicError``. A sharded registration with a
-        ``dataset`` runs the per-shard planner: a refine slab that stays on
-        the device registers as it is, one that would spill raises
-        ``LogicError`` (the sharded host tier is queue A5's)."""
+        do not fit raise ``LogicError``.
+
+        ``algo="tiered_sharded"`` registers a pre-built
+        :class:`raft_tpu_torch.tiered.TieredShardedIndex` (``mesh`` and
+        ``axis`` default to the index's own). A sharded registration with a
+        ``dataset`` under the budget runs the per-shard planner instead: a
+        refine slab that cannot stay on each shard's device converts the
+        registration to ``tiered_sharded`` over per-shard
+        :class:`~raft_tpu_torch.tiered.ShardedHostTier` stores, so the
+        merged winners re-rank from the host of the shard that scanned
+        them."""
         expects(algo in _DEFAULT_MODES, "unknown serving algo %r (want one of %s)",
                 algo, ", ".join(sorted(_DEFAULT_MODES)))
-        if algo.startswith("sharded_"):
+        if algo == "tiered_sharded" and mesh is None:
+            mesh, axis = index.mesh, index.axis
+        if algo.startswith("sharded_") or algo == "tiered_sharded":
             expects(mesh is not None, "sharded algo %r needs mesh=", algo)
         if algo in _SHARDED_TIERABLE:
-            self._plan_tier_sharded(index_id, algo, index, dataset, mesh=mesh, axis=axis)
+            algo, index, dataset = self._plan_tier_sharded(
+                index_id, algo, index, dataset, mesh=mesh, axis=axis, merge_mode=merge_mode,
+                params=params, search_kwargs=search_kwargs)
         else:
             dataset = self._plan_tier(index_id, algo, index, dataset)
         reg = _Registration(
@@ -279,26 +297,29 @@ class ServingEngine:
             obs.inc("serve.tiered_degrades", index_id=index_id, algo=algo)
         return dataset
 
-    def _plan_tier_sharded(self, index_id: str, algo: str, index, dataset, *, mesh,
-                           axis: str) -> None:
-        """Per-shard placement of a lists-sharded registration with a
-        refine ``dataset`` under the budget. A slab that stays on each
-        shard's device registers as it is; one the planner would move off
-        the device raises ``LogicError``: the JAX engine converts it to
-        ``tiered_sharded``, whose per-shard host tier (``tiered/sharded.py``)
-        the port does not have until queue A5, and it must never silently
-        stay resident. Scan components that do not fit raise too."""
+    def _plan_tier_sharded(self, index_id: str, algo: str, index, dataset, *, mesh, axis: str,
+                           merge_mode: str, params, search_kwargs: dict):
+        """Per-shard placement of a lists-sharded registration; returns the
+        (possibly converted) ``(algo, index, dataset)``. With no budget, no
+        refine ``dataset`` or a host store the registration passes as it
+        is. Otherwise the index's residency runs through
+        :func:`~raft_tpu_torch.ops.hbm_model.plan_placement_sharded`: scan
+        components that do not fit a shard's device raise ``LogicError``, and
+        a refine slab the plan moves off the device converts the
+        registration to a :class:`~raft_tpu_torch.tiered.TieredShardedIndex`
+        (``refine_ratio``, ``micro_batch``, ``metric_arg`` and
+        ``fetch_depth_rows`` move from ``search_kwargs`` to it)."""
         if self.hbm_budget_bytes is None or dataset is None:
-            return
+            return algo, index, dataset
         from raft_tpu_torch.neighbors.refine import is_host_dataset
+
+        if is_host_dataset(dataset):
+            return algo, index, dataset
         from raft_tpu_torch.ops.hbm_model import plan_placement_sharded, residency_for_index
 
-        expects(not is_host_dataset(dataset),
-                "a sharded registration cannot take a HostVectorStore: the sharded host tier "
-                "(tiered/sharded.py) is not ported yet (ROADMAP queue A5)")
+        res_algo, scan_algo = _SHARDED_TIERABLE[algo]
         n_shards = mesh.shape[axis]
-        res = residency_for_index(index_id, _SHARDED_TIERABLE[algo], index,
-                                  refine_rows=int(dataset.shape[0]))
+        res = residency_for_index(index_id, res_algo, index, refine_rows=int(dataset.shape[0]))
         placement = plan_placement_sharded(
             [res], n_shards, hbm_budget_per_shard=self.hbm_budget_bytes,
             host_budget_per_shard=self.host_budget_bytes,
@@ -311,15 +332,20 @@ class ServingEngine:
             index_id, placement.device_bytes_per_shard - placement.staging_device_bytes,
             n_shards, self.hbm_budget_bytes,
         )
-        expects(
-            placement.tier(index_id, "raw_vectors") == "device",
-            "registering %r: the per-shard planner puts its refine dataset on the shards' %s "
-            "tier, which needs the sharded host tier (tiered/sharded.py, the JAX engine's "
-            "tiered_sharded); it is not ported yet (ROADMAP queue A5). Raise "
-            "hbm_budget_bytes or register without dataset=",
-            index_id, placement.tier(index_id, "raw_vectors"),
-        )
         self.sharded_placements[index_id] = placement
+        if placement.tier(index_id, "raw_vectors") == "device":
+            return algo, index, dataset
+        from raft_tpu_torch.tiered import ShardedHostTier, TieredShardedIndex
+
+        tier_kw = {key: search_kwargs.pop(key) for key in ("refine_ratio", "micro_batch",
+                                                           "metric_arg") if key in search_kwargs}
+        tier = ShardedHostTier.from_lists(index, dataset, n_shards,
+                                          fetch_depth_rows=search_kwargs.pop("fetch_depth_rows",
+                                                                             None))
+        tiered = TieredShardedIndex(mesh, scan_algo, index, tier, axis=axis, search_params=params,
+                                    merge_mode=merge_mode, **tier_kw)
+        obs.inc("serve.tiered_degrades", index_id=index_id, algo=algo)
+        return "tiered_sharded", tiered, None
 
     def register_mutable(self, index_id: str, mutable, *, params=None, policy=None,
                          compactor=None, **search_kwargs) -> None:
@@ -549,8 +575,8 @@ class ServingEngine:
 
     def _tier_label(self, reg: _Registration) -> str:
         """Placement verdict recorded on the plan ("" = unplanned)."""
-        if reg.algo == "tiered":
-            return "tiered"
+        if reg.algo in ("tiered", "tiered_sharded"):
+            return reg.algo
         if reg.dataset is not None:
             from raft_tpu_torch.neighbors.refine import is_host_dataset
 
@@ -582,7 +608,7 @@ class ServingEngine:
         if not plan.is_enabled():
             return None
         device = getattr(reg.index, "device", self.res.device)
-        scan_ok, scan_reason = auto_scan(device, not getattr(reg.index, "rabitq", False))
+        scan_ok, scan_reason = auto_scan(device)
         n_shards = reg.mesh.shape[reg.axis] if reg.mesh is not None else 0
         with obs.span("plan.build", index_id=reg.index_id, algo=reg.algo, epoch=epoch):
             return plan.plan_registration(
@@ -708,6 +734,12 @@ class ServingEngine:
         if reg.algo == "cagra":
             return lambda q: cagra.search(reg.index, q, k, reg.params, query_batch=bucket,
                                           mode=mode, **kw)
+        if reg.algo == "tiered_sharded":
+            # the timed health probe masks the scan side; the gather finds a
+            # dead host tier itself; the result carries the combined coverage
+            return lambda q: reg.index.search(
+                q, k, health=self._probe_health_timed(reg), min_coverage=reg.min_coverage,
+                merge_mode=None if reg.merge_mode == "auto" else reg.merge_mode, **kw)
         if reg.algo.startswith("sharded_"):
             # a timed health probe a dispatch; failed and slow shards are
             # left out and the result carries its coverage

@@ -14,15 +14,19 @@ gather, overlapped with the next micro-batch's scan.
 * :class:`TieredIndex`: an ``ivf_pq`` / ``ivf_flat`` / ``brute_force``
   index with the scan -> fetch -> re-rank pipeline; a micro-batch's results
   are the resident ``search(dataset=...)``'s bits.
-* :func:`raft_tpu_torch.ops.hbm_model.plan_placement` decides which
-  components spill to this tier; :class:`raft_tpu_torch.serve.ServingEngine`
-  asks it at ``register()`` under ``hbm_budget_bytes``, so a registration
-  that would overfill the card serves tiered instead.
-
-The JAX package's sharded tier (``ShardedHostTier``, ``TieredShardedIndex``)
-is not ported yet; a sharded registration that would need it fails typed.
+* :class:`ShardedHostTier` / :class:`TieredShardedIndex`: the lists-sharded
+  composition, each shard's codes on the device behind the ring or gather
+  merge, the merged winners re-ranked from the host tier of the shard that
+  holds them, a micro-batch the resident sharded path's bits; a dead host's
+  tier costs coverage instead of the query.
+* :func:`raft_tpu_torch.ops.hbm_model.plan_placement` (and the per-shard
+  ``plan_placement_sharded``) decides which components spill to this tier;
+  :class:`raft_tpu_torch.serve.ServingEngine` asks it at ``register()``
+  under ``hbm_budget_bytes``, so a registration that would overfill the card
+  serves tiered (or ``tiered_sharded``) instead.
 """
 from raft_tpu_torch.tiered.index import TieredIndex
+from raft_tpu_torch.tiered.sharded import ShardedHostTier, TieredShardedIndex
 from raft_tpu_torch.tiered.store import HostVectorStore
 
-__all__ = ["HostVectorStore", "TieredIndex"]
+__all__ = ["HostVectorStore", "ShardedHostTier", "TieredIndex", "TieredShardedIndex"]

@@ -76,6 +76,45 @@ class _Slab:
         self.event = None
 
 
+class _Staging:
+    """Two staging slabs a ``(shape, pinned)``, used in turn, of one storage
+    dtype (int16 bit patterns for bfloat16). A slab whose copy to a card
+    may still be in flight is waited for before it is handed out again."""
+
+    def __init__(self, storage: torch.dtype, bf16: bool):
+        self._storage = storage
+        self._bf16 = bf16
+        # (shape, pinned) -> [slab_a, slab_b]; _flip picks the live one
+        self._bufs: Dict[tuple, list] = {}
+        self._flip = 0
+
+    def next(self, shape, pinned: bool) -> _Slab:
+        key = (tuple(shape), pinned)
+        bufs = self._bufs.get(key)
+        if bufs is None:
+            bufs = self._bufs[key] = [_Slab(shape, self._storage, pinned, self._bf16)
+                                      for _ in range(2)]
+        self._flip ^= 1
+        slab = bufs[self._flip]
+        if slab.event is not None:
+            slab.event.synchronize()
+            slab.event = None
+        return slab
+
+    def to_device(self, slab: _Slab, device: torch.device) -> torch.Tensor:
+        """The slab as a tensor on ``device``: on a card a ``non_blocking``
+        copy of the pinned slab, the slab's event recorded after it; on the
+        CPU the slab itself (valid until the gather after next of its
+        shape)."""
+        t = slab.tensor.view(torch.bfloat16) if self._bf16 else slab.tensor
+        if device.type != "cuda":
+            return t.to(device)
+        out = t.to(device, non_blocking=True)
+        slab.event = torch.cuda.Event()
+        slab.event.record(torch.cuda.current_stream(device))
+        return out
+
+
 class HostVectorStore:
     """Host-resident ``[n_rows, dim]`` vectors with a staged batch gather.
 
@@ -120,9 +159,7 @@ class HostVectorStore:
         self.fetch_depth_rows = fetch_depth_rows
         self.readahead = bool(readahead)
         self._fault_context = dict(fault_context or {})
-        # staging: (shape, pinned) -> [slab_a, slab_b]; _flip picks the live one
-        self._staging: Dict[tuple, list] = {}
-        self._flip = 0
+        self._staging = self._new_staging()
 
     # -- array-protocol surface the refine path reads -----------------------
 
@@ -159,21 +196,10 @@ class HostVectorStore:
 
     # -- the gather ----------------------------------------------------------
 
-    def _staging_slab(self, shape, pinned: bool = False) -> _Slab:
-        """The next of the two slabs of ``shape``; one whose copy to a card
-        may still be in flight is waited for first."""
-        key = (tuple(shape), pinned)
-        bufs = self._staging.get(key)
-        if bufs is None:
-            storage = torch.int16 if self._bf16 else _torch_dtype(self._data.dtype)
-            bufs = [_Slab(shape, storage, pinned, self._bf16) for _ in range(2)]
-            self._staging[key] = bufs
-        self._flip ^= 1
-        slab = bufs[self._flip]
-        if slab.event is not None:
-            slab.event.synchronize()
-            slab.event = None
-        return slab
+    def _new_staging(self) -> _Staging:
+        """Staging slabs of this store's row dtype (also a sharded tier's,
+        whose slab holds several stores' rows)."""
+        return _Staging(torch.int16 if self._bf16 else _torch_dtype(self._data.dtype), self._bf16)
 
     def _advise(self, rows: np.ndarray) -> None:
         """madvise(WILLNEED) the page-aligned byte ranges covering ``rows``
@@ -272,7 +298,7 @@ class HostVectorStore:
         c = np.asarray(candidates.cpu() if isinstance(candidates, torch.Tensor) else candidates)
         expects(c.ndim == 2, "candidates must be [nq, n_cand]")
         safe = np.where(c >= 0, c, 0).reshape(-1)
-        slab = self._staging_slab(c.shape + (self.dim,), pinned)
+        slab = self._staging.next(c.shape + (self.dim,), pinned)
         self.gather_rows(safe, out=slab.array.reshape(-1, self.dim))
         return slab
 
@@ -290,14 +316,8 @@ class HostVectorStore:
         event recorded after it; on the CPU the slab itself (valid until
         the gather after next of its shape)."""
         device = torch.device(device)
-        slab = self._fill(candidates, pinned=device.type == "cuda")
-        t = slab.tensor.view(torch.bfloat16) if self._bf16 else slab.tensor
-        if device.type != "cuda":
-            return t.to(device)
-        out = t.to(device, non_blocking=True)
-        slab.event = torch.cuda.Event()
-        slab.event.record(torch.cuda.current_stream(device))
-        return out
+        return self._staging.to_device(self._fill(candidates, pinned=device.type == "cuda"),
+                                       device)
 
     # -- persistence ---------------------------------------------------------
 

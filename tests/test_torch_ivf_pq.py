@@ -384,8 +384,8 @@ def test_serving_bucket_aligned_equals_direct_search(corpus, pair, mode):
 def test_auto_mode_picks_fused_from_128_queries(corpus, pair, monkeypatch, kind):
     """``auto`` takes the fused kernel from 128 queries on a CUDA index
     only (an f32 LUT request keeps PQ off it); this CPU index takes the
-    dense scan from 128 queries (RaBitQ, with no scan yet, the probe path)
-    and the probe path below."""
+    dense scan from 128 queries (RaBitQ's sign-bit scan too, as JAX) and
+    the probe path below."""
     cuda = torch.device("cuda")
     assert ivf_common.auto_search_mode(cuda, 128, True) == "fused"
     assert ivf_common.auto_search_mode(cuda, 127, True) == "probe"
@@ -393,8 +393,9 @@ def test_auto_mode_picks_fused_from_128_queries(corpus, pair, monkeypatch, kind)
     _, q, _ = corpus
     _, _, ti = pair(kind)
     calls = []
-    names = (("ivf_rabitq_fused_search", "_rabitq_probe_search") if kind == "rabitq"
-             else ("ivf_pq_fused_search", "_ivf_pq_scan_impl", "_probe_search"))
+    names = (("ivf_rabitq_fused_search", "_ivf_rabitq_scan_impl", "_rabitq_probe_search")
+             if kind == "rabitq" else ("ivf_pq_fused_search", "_ivf_pq_scan_impl", "_probe_search"))
+    scan = names[1]
     for name in names:
         real = getattr(tivf, name)
         monkeypatch.setattr(tivf, name, lambda *a, _n=name, _f=real, **kw: calls.append(_n) or _f(*a, **kw))
@@ -410,10 +411,10 @@ def test_auto_mode_picks_fused_from_128_queries(corpus, pair, monkeypatch, kind)
     assert set(calls) == {probe}
     calls.clear()
     tivf.search(ti, qq[:128], K, p)
-    assert set(calls) == ({probe} if kind == "rabitq" else {"_ivf_pq_scan_impl"})
+    assert set(calls) == {scan}
     calls.clear()
     tivf.search(ti, qq[:128], K, dataclasses.replace(p, lut_dtype=torch.float32))
-    assert set(calls) == ({probe} if kind == "rabitq" else {"_ivf_pq_scan_impl"})
+    assert set(calls) == {scan}
     # RaBitQ has no LUT: its kernel stays eligible whatever lut_dtype says
     assert asked == ([True] * 3 if kind == "rabitq" else [True, True, False])
 
@@ -452,13 +453,19 @@ def test_fused_search_keeps_group_tables_on_the_index(corpus, pair, monkeypatch,
 
 
 def test_scan_mode_is_not_ported_yet(corpus, pair):
-    """RaBitQ's dense scan (``rabitq_scan_core``) is the one scan mode still
-    to port; the PQ and IVF-Flat scans run (``tests/test_torch_sharded.py``
-    holds them against raft_tpu)."""
+    """RaBitQ's dense scan (``rabitq_scan_core``) against JAX's
+    ``mode="scan"`` on the JAX-built index (``assert_search_equal`` with the
+    RaBitQ tolerance of :func:`search_tolerance`); the IVF-Flat scan runs
+    too (``tests/test_torch_sharded.py`` holds the PQ and IVF-Flat scans
+    against raft_tpu). The name is the one the test had while the RaBitQ
+    scan raised."""
     _, q, _ = corpus
-    _, _, ti = pair("rabitq")
-    with pytest.raises(LogicError, match="not ported yet"):
-        tivf.search(ti, torch.from_numpy(q), K, mode="scan")
+    ji, _, ti = pair("rabitq")
+    jd, jidx = jivf.search(ji, q, K, jivf.IvfPqSearchParams(n_probes=4, refine_ratio=1),
+                           mode="scan")
+    td, tidx = tivf.search(ti, torch.from_numpy(q), K,
+                           tivf.IvfPqSearchParams(n_probes=4, refine_ratio=1), mode="scan")
+    assert_search_equal(td, tidx, jd, jidx, atol=search_tolerance(ti, q))
     flat = tflat.build(corpus[0][:500], tflat.IvfFlatIndexParams(n_lists=8), res=CPU)
     d, i = tflat.search(flat, torch.from_numpy(q), K, mode="scan")
     assert tuple(i.shape) == (NQ, K) and bool((i >= 0).all()) and bool(torch.isfinite(d).all())

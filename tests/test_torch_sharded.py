@@ -164,15 +164,23 @@ def test_auto_mode_on_a_cpu_index_matches_jax(corpus, flat_pair, pq_pair, family
 
 
 def test_rabitq_auto_on_a_cpu_index_takes_probe(corpus):
-    """RaBitQ has no scan in the port yet: ``auto`` on a CPU index takes the
-    probe path at any batch size."""
+    """RaBitQ's ``auto`` on a CPU index against JAX's ``auto`` off a TPU, on
+    the JAX-built index: the dense scan from 128 queries, the probe path
+    below (the module's tolerance), each bit-equal to the port's explicit
+    mode. The name is the one the test had while the port had no RaBitQ scan
+    and took the probe path at every size."""
     x, q = corpus
-    ti = tpq.build(x, tpq.IvfPqIndexParams(n_lists=N_LISTS, pq_bits=1, kmeans_n_iters=5), res=CPU)
-    qq = torch.from_numpy(np.concatenate([q] * 4))
-    for rows in (160, 40):
-        auto = tpq.search(ti, qq[:rows], K, n_probes=N_PROBES, refine_ratio=1)
-        probe = tpq.search(ti, qq[:rows], K, n_probes=N_PROBES, refine_ratio=1, mode="probe")
-        assert torch.equal(auto[1], probe[1]) and torch.equal(auto[0], probe[0])
+    ji = jpq.build(x, jpq.IvfPqIndexParams(n_lists=N_LISTS, pq_bits=1, kmeans_n_iters=5))
+    ti = _load(jpq, tpq, ji)
+    qq = np.concatenate([q] * 4)
+    for rows in (160, 128, 40):
+        jd, jidx = jpq.search(ji, qq[:rows], K, n_probes=N_PROBES, refine_ratio=1)
+        auto = tpq.search(ti, torch.from_numpy(qq[:rows]), K, n_probes=N_PROBES, refine_ratio=1)
+        assert_close_to_jax(auto[0], auto[1], jd, jidx)
+        mode = "scan" if rows >= 128 else "probe"
+        want = tpq.search(ti, torch.from_numpy(qq[:rows]), K, n_probes=N_PROBES, refine_ratio=1,
+                          mode=mode)
+        assert torch.equal(auto[1], want[1]) and torch.equal(auto[0], want[0])
 
 
 def test_scan_mode_batches_with_a_padded_tail(corpus, pq_pair, flat_pair):

@@ -18,8 +18,9 @@ packages scan the same lists. Held here:
 * ``ServingEngine(hbm_budget_bytes=...)``: over budget the dataset spills
   to a ``HostVectorStore`` with the resident bits, under budget it stays,
   an infeasible budget fails typed, a pre-built ``TieredIndex`` serves, and
-  a sharded registration the JAX engine would turn into ``tiered_sharded``
-  fails typed.
+  a sharded registration over its per-shard budget converts to
+  ``tiered_sharded`` as the JAX engine's does
+  (``tests/test_torch_tiered_sharded.py`` serves it).
 """
 import io
 
@@ -500,8 +501,9 @@ def test_register_a_prebuilt_tiered_index(family, data, queries):
 @pytest.mark.parametrize("spill", [False, True])
 def test_sharded_registration_under_a_budget(family, data, spill):
     """Where the per-shard plan keeps the slab on the device the sharded
-    registration stands; where the JAX engine would convert it to
-    ``tiered_sharded`` the port fails typed, naming A5."""
+    registration stands; where it moves the slab off the device the
+    registration converts to ``tiered_sharded``, as the JAX engine's does
+    (the spill case raised before the sharded host tier was ported)."""
     _, ji, ti, _, _ = family("ivf_flat")
     mesh = make_mesh(["cpu"] * 4)
     res = residency_for_index("s", "ivf_flat", ti, refine_rows=N)
@@ -513,9 +515,14 @@ def test_sharded_registration_under_a_budget(family, data, spill):
     jeng.register("s", "sharded_ivf_flat", ji, mesh=jmesh, dataset=data)
     assert jeng._indexes["s"].algo == ("tiered_sharded" if spill else "sharded_ivf_flat")
     if spill:
-        with pytest.raises(LogicError, match="tiered/sharded.py"):
-            eng.register("s", "sharded_ivf_flat", ti, mesh=mesh, dataset=torch.from_numpy(data))
-        assert "s" not in eng.registered()
+        eng.register("s", "sharded_ivf_flat", ti, mesh=mesh, dataset=torch.from_numpy(data))
+        reg, jreg = eng._indexes["s"], jeng._indexes["s"]
+        assert (reg.algo, reg.dataset, reg.mode) == (jreg.algo, None, jreg.mode)
+        assert type(reg.index).__name__ == type(jreg.index).__name__ == "TieredShardedIndex"
+        assert (reg.index.algo, reg.index.refine_ratio) == (jreg.index.algo, jreg.index.refine_ratio)
+        assert eng.sharded_placements["s"].tier("s", "raw_vectors") == \
+            jeng.sharded_placements["s"].tier("s", "raw_vectors") != "device"
+        assert eng._tier_label(reg) == jeng._tier_label(jreg) == "tiered_sharded"
     else:
         eng.register("s", "sharded_ivf_flat", ti, mesh=mesh, dataset=torch.from_numpy(data))
         assert eng.sharded_placements["s"].tier("s", "raw_vectors") == "device"
