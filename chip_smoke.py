@@ -1,7 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -137,6 +137,27 @@ Phases, in order; any failure exits non-zero:
    sharded search plus refine batch by batch, with shard 2's host tier
    lost (coverage 0.75) and a ``min_coverage`` floor; the comms verbs added
    with it against numpy.
+12. replicated serving and the rest of obs (:func:`replica_phase`) on
+   phase 3's IVF-Flat index: (a) a one-replica ``ReplicaGroup`` bit-equal
+   to a bare ``ServingEngine`` over the 10,000-query backlog of 1-128-row
+   requests; 1, 2 and 4 replicas with threaded pumps on one shared index,
+   a backlog of 65-128-row requests (each a micro-batch of its own)
+   bit-equal to the bare engine's, QPS, p50/p99, B1 launches and the
+   device busy share of each; (b) replica 1 of two killed through the
+   ``replica.dispatch`` seam a third into the stream while it holds
+   queued work: every future completes without error, bit-equal to the
+   run without the kill, ``serve.failovers`` > 0; (c) a 1M-row mutable
+   leader and two followers behind ``register_mutable_replicated``,
+   phase 8's churn sealed and shipped each maintenance tick, each
+   follower at the leader's record count bit-equal to the leader, the
+   staleness floor keeping reads on the leader, both following a
+   compaction flip, B1's delta launch on a follower equal to its plain
+   version; (d) a ``ControlPlane``: the leader killed with one follower's
+   wire down, the higher cursor promoted (the election's seconds), no
+   caller error, the deposed epoch fenced (``FencedError``); (e) a flight
+   recorder and an SLO the backlog breaches: exactly one CRC-valid
+   bundle that round-trips through ``load_bundle``, and with obs off the
+   backlog bit-equal to (a)'s.
 
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
 256, with ties, signed zeros, padding and ``inf``) against its plain
@@ -152,7 +173,7 @@ engine and of the gather merge into host and device time
 kernel's stage clock (``fused_ring_topk_split``).
 
 Each kernel's launch count is zeroed just before its path runs (phases
-3-11) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
+3-12) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
 adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
 IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 (:func:`run_phases`): ``paths`` times the IVF-Flat search paths per call
@@ -162,7 +183,7 @@ phase 2's B3 checks, ``rabitq`` phase 5, ``b1`` and ``b4`` phase 2's B1
 or B4 checks and then that kernel at the main path's shapes on the 1M
 index, ``mutable`` phase 8, ``robust`` phase 9 (with ``--tree`` only the
 sharded backlog's QPS, :func:`sharded_serve_qps`), ``tiered`` phase 10,
-``multi`` phase 11;
+``multi`` phase 11, ``replica`` phase 12;
 with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
@@ -1880,14 +1901,408 @@ def mutable_phase(card, res, X, Q, gt_i, gen, k: int, seed: int, immutable=None)
     return dict(launches=serve["b1_launches"], delta=b1_delta[k], serve=serve)
 
 
-def backlog(eng, index_id, Q, sizes, k):
+def replica_sizes(rng, nq: int) -> list:
+    """Requests of 65-128 rows up to ``nq`` rows (the remainder dropped): no
+    two fit one 128-row micro-batch, so each request is a batch of its own
+    in every engine, whichever replica serves it."""
+    sizes = []
+    while True:
+        m = int(rng.integers(65, 129))
+        if sum(sizes) + m > nq:
+            return sizes
+        sizes.append(m)
+
+
+def replica_backlog(grp, index_id, Q, sizes, k, on_submit=None):
+    """:func:`backlog` through ``grp`` (an engine or a replica group);
+    returns each request's outcome (its result or its exception) and the
+    seconds."""
+    futs, secs = backlog(grp, index_id, Q, sizes, k, on_submit)
+    return [f.exception(timeout=0) or f.result(timeout=0) for f in futs], secs
+
+
+def same_served(what: str, got, want) -> None:
+    """Every outcome a result, bit-equal to ``want``'s, request by request."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if isinstance(a, BaseException):
+            raise AssertionError(f"{what}: request {i} failed: {a!r}")
+        if not (np.array_equal(a.indices, b.indices) and np.array_equal(a.distances, b.distances)):
+            raise AssertionError(f"{what}: request {i} is not the bare engine's answer")
+
+
+def replica_phase(card, res, index, X, Q, gt_i, gen, k: int, seed: int, sizes) -> dict:
+    """Phase 12: replicated serving and the rest of obs (:func:`run_phases`'s
+    ``replica`` part) on phase 3's IVF-Flat index (``n_probes=20``,
+    ``fused_qt=16``, B1 at bucket 128). Checks, each raising:
+
+    (a) a one-replica ``ReplicaGroup`` serves the 10,000-query backlog of
+    phase 3's 1-128-row requests bit-equal to a bare ``ServingEngine``; at
+    1, 2 and 4 replicas with threaded pumps (one shared index, warmed
+    first) a backlog of 65-128-row requests (each a batch of its own) is
+    bit-equal to the bare engine's, with QPS, p50/p99, B1 launches and the
+    device busy share of each;
+    (b) at 2 threaded replicas, replica 1 killed through ``replica.dispatch``
+    once a third of the stream is in and it holds queued work: every
+    future completes without error, bit-equal to the run without the kill,
+    ``serve.failovers`` > 0;
+    (c) a leader (``MutableIndex.open``, the 1M rows, compacted to
+    generation 1) and two followers (``Follower``, on the card) behind
+    ``register_mutable_replicated``: phase 8's churn sealed and shipped on
+    the maintenance tick, each follower at the leader's record count
+    answering bit-equal to the leader, the staleness floor keeping reads
+    off a lagging follower, both following a compaction flip to
+    generation 2, B1's delta launch on a follower ``torch.equal`` to its
+    plain version, the served backlog launching B1;
+    (d) a ``ControlPlane`` over that pipeline: the leader killed while one
+    follower's wire is down and a stream is served; its lease runs out;
+    the follower with the higher cursor is promoted (the election's
+    seconds: a leader rebuilt from 1M live rows), no caller sees an error,
+    the followers converge bit-equal, the deposed leader's frames raise
+    ``FencedError``;
+    (e) a flight recorder and an SLO (1 ms at 0.9) the backlog breaches:
+    exactly one bundle, CRC-valid, equal through ``load_bundle`` (size and
+    write time); with obs off and a recorder installed the backlog is
+    bit-equal to (a)'s.
+    Returns B1's launches in (a)-(c) and the phase's numbers."""
+    import shutil
+    import tempfile
+
+    from raft_tpu_torch import obs
+    from raft_tpu_torch.mutable import MutableIndex
+    from raft_tpu_torch.neighbors import ivf_flat
+    from raft_tpu_torch.obs import recorder
+    from raft_tpu_torch.ops import ivf_scan
+    from raft_tpu_torch.replica import (ControlPlane, FencedError, Follower, LeaseStore,
+                                        ReplicaGroup, Replication)
+    from raft_tpu_torch.replica.shipping import _read_file_chunk
+    from raft_tpu_torch.robust import faults
+    from raft_tpu_torch.serve import ServingEngine
+    from raft_tpu_torch.stats.recall import neighborhood_recall
+
+    t_phase = time.perf_counter()
+    n, d = X.shape
+    nq = Q.shape[0]
+    rng = np.random.default_rng([seed, 12])
+    params = ivf_flat.IvfFlatSearchParams(n_probes=20, fused_qt=SERVE_QT)
+    b1 = ivf_scan.fused_list_topk
+    out = {"launches": {}}
+
+    def engine():
+        return ServingEngine(max_batch=128, max_wait_ms=2.0, queue_capacity=nq, res=res)
+
+    def lat(results):
+        ms = np.array([r.latency_ms for r in results])
+        return dict(p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)))
+
+    # ---- (a) groups against the bare engine -------------------------------
+    bare = engine()
+    bare.register("flat", "ivf_flat", index, params=params)
+    bare.warmup("flat", k)
+    base, base_s = replica_backlog(bare, "flat", Q, sizes, k)
+    ids = np.concatenate([r.indices for r in base])
+    recall = neighborhood_recall(torch.from_numpy(ids), gt_i)
+    one = ReplicaGroup(n_replicas=1, engine_factory=lambda r: engine(), res=res)
+    one.register("flat", "ivf_flat", index, params=params)
+    one.warmup("flat", k)
+    b1.launches = 0
+    got, secs = replica_backlog(one, "flat", Q, sizes, k)
+    same_served("one-replica group (1-128-row requests)", got, base)
+    if b1.launches <= 0:
+        raise AssertionError("the one-replica group never launched B1")
+    emit(card, phase="replica", metric="one_replica_vs_bare", requests=len(sizes), rows=nq,
+         bit_equal=True, qps=nq / secs, bare_qps=nq / base_s, b1_launches=b1.launches,
+         recall=recall)
+    out["launches"]["one_replica"] = b1.launches
+    one.shutdown()
+
+    rsizes = replica_sizes(rng, nq)
+    rows = int(sum(rsizes))
+    Qr = Q[:rows]
+    want, bare_s = replica_backlog(bare, "flat", Qr, rsizes, k)
+    emit(card, phase="replica", metric="bare_engine_backlog", requests=len(rsizes), rows=rows,
+         qps=rows / bare_s, **lat(want))
+    scaling = {}
+    for n_rep in (1, 2, 4):
+        grp = ReplicaGroup(n_replicas=n_rep, engine_factory=lambda r: engine(), res=res,
+                           name=f"flat{n_rep}")
+        grp.register("flat", "ivf_flat", index, params=params)
+        grp.warmup("flat", k)
+        grp.start()
+        try:
+            qps = []
+            for _ in range(2):
+                b1.launches = 0
+                torch.cuda.synchronize()
+                got, secs = replica_backlog(grp, "flat", Qr, rsizes, k)
+                same_served(f"{n_rep} threaded replicas", got, want)
+                qps.append(rows / secs)
+            launches = b1.launches
+            if launches <= 0:
+                raise AssertionError(f"{n_rep} threaded replicas never launched B1")
+            busy = profile_backlog(card, grp, "flat", Qr, np.cumsum([0] + rsizes[:-1]), rsizes, k,
+                                   None, n_req=len(rsizes), phase="replica")
+        finally:
+            grp.stop()
+            grp.shutdown()
+        scaling[n_rep] = dict(qps=qps, b1_launches=launches, busy_share=busy, **lat(got))
+        emit(card, phase="replica", metric="replicated_serve", replicas=n_rep, threaded=True,
+             requests=len(rsizes), rows=rows, bit_equal_to_bare=True, **scaling[n_rep])
+        out["launches"][f"threaded_{n_rep}"] = launches
+    out["scaling"] = scaling
+
+    # ---- (b) failover: replica 1 killed mid-stream ------------------------
+    obs.registry().reset()
+    obs.enable()
+    faults.enable()
+    grp = ReplicaGroup(n_replicas=2, failure_threshold=2, reset_timeout_s=30.0,
+                       engine_factory=lambda r: engine(), res=res, name="failover")
+    grp.register("flat", "ivf_flat", index, params=params)
+    grp.warmup("flat", k)
+    killed = []
+
+    def kill(i):
+        if not killed and i >= len(rsizes) // 3 and grp.engines[1].queue_depth() > 0:
+            killed.append(i)
+            faults.install("replica.dispatch", error=RuntimeError("chaos kill"),
+                           match={"replica": 1})
+
+    grp.start()
+    try:
+        b1.launches = 0
+        got, secs = replica_backlog(grp, "flat", Qr, rsizes, k, on_submit=kill)
+    finally:
+        grp.stop()
+        faults.clear()
+        faults.disable()
+    counters = obs.registry().as_dict()["counters"]
+    failovers = sum(v for key, v in counters.items() if key.startswith("serve.failovers"))
+    pump_failures = sum(v for key, v in counters.items()
+                        if key.startswith("replica.pump_failures"))
+    obs.disable()
+    same_served("failover run", got, want)
+    fo = dict(killed_at_request=killed[0] if killed else None, qps=rows / secs,
+              failovers=failovers, pump_failures=pump_failures, breakers=grp.router.states(),
+              b1_launches=b1.launches, **lat(got))
+    emit(card, phase="replica", metric="failover", replicas=2, requests=len(rsizes), **fo)
+    if not killed or failovers <= 0 or grp.router.states()[1] != "open":
+        raise AssertionError(f"the kill did not fail over: {fo}")
+    grp.shutdown()
+    out["failover"] = fo
+    out["launches"]["failover"] = fo["b1_launches"]
+
+    # ---- (c) replicated mutable serving -----------------------------------
+    tmp = tempfile.mkdtemp(prefix="replica_")
+    try:
+        t0 = time.perf_counter()
+        leader = MutableIndex.open(os.path.join(tmp, "leader"), "ivf_flat", d,
+                                   index_params=ivf_flat.IvfFlatIndexParams(n_lists=1024),
+                                   search_params=params, name="leader", res=res)
+        for s in range(0, n, 65536):
+            leader.insert(X[s : s + 65536])
+        if leader.compact() != 1:
+            raise AssertionError("the leader's first compaction did not publish generation 1")
+        load_s = time.perf_counter() - t0
+        wire = {"down": False}
+
+        def f0_wire(path, offset, nbytes):
+            if wire["down"]:
+                raise OSError("f0's wire is down")
+            return _read_file_chunk(path, offset, nbytes)
+
+        t0 = time.perf_counter()
+        followers = [Follower(leader.directory, os.path.join(tmp, f"f{j}"), algo="ivf_flat",
+                              dim=d, index_params=leader.index_params, search_params=params,
+                              name=f"f{j}", res=res) for j in range(2)]
+        follower_load_s = time.perf_counter() - t0
+        rep = Replication(leader, followers, seal_bytes=1, transports=[f0_wire, None])
+        grp = ReplicaGroup(n_replicas=3, max_staleness_records=0,
+                           engine_factory=lambda r: engine(), res=res, name="mutable")
+        grp.register_mutable_replicated("m", rep, params=params)
+        picks = rng.choice(n, 11_024, replace=False)
+        del_ids, up_ids = picks[:10_000], picks[10_000:]
+        # phase 8's churn, 16 inserts short: the floor's 16 rows below fill
+        # the delta to 32,768 rows, 32 banks of B1
+        new_rows, up_rows = gen.sample(31_728), gen.sample(1_024)
+        for s in range(0, len(new_rows), 1024):
+            leader.insert(new_rows[s : s + 1024])
+        leader.delete(del_ids)
+        leader.upsert(up_ids, up_rows)
+        t0 = time.perf_counter()
+        grp.maintenance_tick()
+        ship_s = time.perf_counter() - t0
+        Qc = torch.from_numpy(Q[:1024]).cuda()
+
+        def converged(what):
+            ld, li = rep.leader.snapshot().search(Qc, k)
+            for j, f in enumerate(rep.followers):
+                if rep.staleness(j) != 0:
+                    raise AssertionError(f"{what}: follower {f.name} lags {rep.staleness(j)}")
+                fd, fi = f.index.snapshot().search(Qc, k)
+                if not (np.array_equal(ld, fd) and np.array_equal(li, fi)):
+                    raise AssertionError(f"{what}: follower {f.name} at the leader's record "
+                                         "count does not answer as the leader")
+
+        converged("after the churn")
+        # the floor: a record the followers lack keeps reads on the leader
+        rep.seal_bytes = 1 << 40
+        leader.insert(gen.sample(16))
+        grp.maintenance_tick()
+        lag = [grp.router.staleness(r) for r in range(3)]
+        landed = []
+        for s in range(0, 1024, 128):
+            grp.submit("m", Q[s : s + 128], k)
+            landed.append(grp._flights[-1].replica)
+        grp.run_until_idle()
+        if lag[1:] != [1, 1] or set(landed) != {0}:
+            raise AssertionError(f"staleness {lag}, requests landed on {landed}")
+        rep.seal_bytes = 1
+        grp.maintenance_tick()
+        converged("after the floor")
+        snap = rep.followers[0].index.snapshot()
+        if int(snap.delta_bf.size) != 32_768:
+            raise AssertionError(f"the followers' delta holds {snap.delta_bf.size} rows")
+        da = delta_args(snap, Qc)
+        kv, ks = run_flat(da, k, snap.metric)
+        rv, rs = run_flat(da, k, snap.metric, reference=True)
+        if not (torch.equal(kv, rv) and torch.equal(ks, rs)):
+            raise AssertionError("B1's delta launch on a follower is not its plain version's bits")
+        # served: the backlog over leader and followers
+        b1.launches = 0
+        scans0 = dict(obs.registry().as_dict()["counters"])
+        obs.enable()
+        got, secs = replica_backlog(grp, "m", Q, sizes, k)
+        counters = obs.registry().as_dict()["counters"]
+        obs.disable()
+        delta_scans = counters.get('mutable.delta.scans{mode="fused"}', 0.0) - scans0.get(
+            'mutable.delta.scans{mode="fused"}', 0.0)
+        bad = [r for r in got if isinstance(r, BaseException)]
+        ids = np.concatenate([r.indices for r in got if not isinstance(r, BaseException)])
+        if (bad or (ids < 0).any() or np.isin(ids, del_ids).any() or b1.launches <= 0
+                or delta_scans <= 0):
+            raise AssertionError(f"replicated mutable backlog: {len(bad)} errors, B1 "
+                                 f"{b1.launches} launches")
+        mutable_serve = dict(qps=nq / secs, b1_launches=b1.launches,
+                             b1_launches_delta=delta_scans, **lat(got))
+        out["launches"]["mutable"] = b1.launches
+        # a compaction flip on the leader: the followers rebase on it
+        t0 = time.perf_counter()
+        leader.compact()
+        flip_compact_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        grp.maintenance_tick()
+        sync_s = time.perf_counter() - t0
+        gens = [f.index.generation for f in rep.followers]
+        if gens != [2, 2] or leader.generation != 2:
+            raise AssertionError(f"followers at generations {gens}, leader {leader.generation}")
+        converged("after the flip")
+        emit(card, phase="replica", metric="replicated_mutable", rows=n, followers=2,
+             leader_load_s=load_s, follower_load_s=follower_load_s, churn_ship_s=ship_s,
+             staleness_floor=lag, floor_landed=sorted(set(landed)),
+             delta_launch_torch_equal=True, flip_compact_s=flip_compact_s,
+             follower_sync_s=sync_s, generations=gens, **mutable_serve)
+        out["mutable"] = dict(mutable_serve, follower_sync_s=sync_s, staleness_floor=lag)
+
+        # ---- (d) election -------------------------------------------------
+        clk = [0.0]
+        store = LeaseStore(os.path.join(tmp, "lease"), ttl_s=1.0, clock=lambda: clk[0])
+        cp = ControlPlane(rep, store, root_dir=os.path.join(tmp, "cp"), clock=lambda: clk[0])
+        grp.maintenance_tick()
+        old = rep.leader
+        old.insert(gen.sample(256))
+        wire["down"] = True  # f0 misses the tail: f1's cursor is ahead
+        grp.maintenance_tick()
+        cursors = [f.position.as_dict() for f in rep.followers]
+        election = {}
+
+        def kill_leader(i):
+            if i == len(sizes) // 3:
+                cp.kill_leader()
+                clk[0] += 2.0  # the dead leader's lease runs out
+                t0 = time.perf_counter()
+                grp.maintenance_tick()  # the election and the promotion
+                election["elect_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                grp.maintenance_tick()  # the rebased followers catch up
+                election["converge_s"] = time.perf_counter() - t0
+            grp.step()
+
+        got, secs = replica_backlog(grp, "m", Q, sizes, k, on_submit=kill_leader)
+        bad = [r for r in got if isinstance(r, BaseException)]
+        if bad or cp.elections != 1 or cp.leader_name != "f1" or cp.epoch != 2:
+            raise AssertionError(f"election: {len(bad)} caller errors, {cp.elections} elections, "
+                                 f"leader {cp.leader_name}, epoch {cp.epoch}")
+        wire["down"] = False
+        grp.maintenance_tick()
+        converged("after the election")
+        f = rep.followers[0]
+        try:
+            f.apply(f.position.segment, f.position.offset, b"stale", epoch=1)
+            raise AssertionError("a frame of the deposed leader's epoch was accepted")
+        except FencedError:
+            pass
+        election.update(leader_rows=int(rep.leader.size), cursors=cursors,
+                        followers=[x.name for x in rep.followers], qps=nq / secs)
+        emit(card, phase="replica", metric="election", **election)
+        out["election"] = election
+        grp.shutdown()
+        for x in [rep.leader, old]:
+            x.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- (e) the flight recorder --------------------------------------------
+    bdir = tempfile.mkdtemp(prefix="bundles_")
+    try:
+        obs.registry().reset()
+        obs.enable()
+        r = recorder.install(bdir, triggers=("slo",), min_dump_interval_s=300.0)
+        eng = engine()
+        eng.register("flat", "ivf_flat", index, params=params)
+        r.attach_engine(eng)
+        eng.set_slo("flat", latency_ms=1.0, target=0.9, burn_threshold=2.0)
+        got, _ = replica_backlog(eng, "flat", Q, sizes, k)
+        bundles = recorder.list_bundles(bdir)
+        if len(bundles) != 1:
+            raise AssertionError(f"the SLO drill wrote {len(bundles)} bundles, not one")
+        bundle = recorder.load_bundle(bundles[0])
+        if bundle["trigger"]["cause"] != "slo" or not eng.health()["indexes"]["flat"]["slo"][
+                "alerting"]:
+            raise AssertionError(f"bundle trigger {bundle['trigger']}")
+        size = os.path.getsize(bundles[0])
+        r.out_dir = os.path.join(bdir, "timed")
+        t0 = time.perf_counter()
+        timed = r.dump()
+        write_s = time.perf_counter() - t0
+        obs.disable()
+        got_off, _ = replica_backlog(eng, "flat", Q, sizes, k)
+        same_served("obs off with a recorder installed", got_off, base)
+        rec = dict(bundles=1, bundle_bytes=size, cause="slo", events=len(bundle["events"]),
+                   series=len(bundle["series"]["series"]), manual_dump_bytes=os.path.getsize(timed),
+                   manual_dump_s=write_s, obs_off_bit_equal=True)
+        emit(card, phase="replica", metric="flight_recorder", **rec)
+        out["recorder"] = rec
+    finally:
+        recorder.uninstall()
+        obs.disable()
+        obs.registry().reset()
+        shutil.rmtree(bdir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(card, phase="replica", metric="replica_phase_s", value=out["phase_s"])
+    return out
+
+
+def backlog(eng, index_id, Q, sizes, k, on_submit=None):
     """Queue every request of ``sizes`` rows of ``Q``, drain, and return
     the futures and the seconds (host clock, ending when every future is
-    done)."""
+    done). ``on_submit(i)`` runs after the i-th submission."""
     starts = np.cumsum([0] + list(sizes[:-1]))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    futs = [eng.submit(index_id, Q[s : s + m], k) for s, m in zip(starts, sizes)]
+    futs = []
+    for i, (s, m) in enumerate(zip(starts, sizes)):
+        futs.append(eng.submit(index_id, Q[s : s + m], k))
+        if on_submit is not None:
+            on_submit(i)
     eng.run_until_idle()
     for f in futs:
         f.exception()
@@ -2934,7 +3349,7 @@ def sizes_to(sizes, rows: int) -> list:
 
 #: the parts ``--phases`` runs alone
 PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable", "robust",
-               "tiered", "multi")
+               "tiered", "multi", "replica")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
@@ -2957,7 +3372,9 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
     (:func:`tiered_phase`) on phase 3's data and the indexes of phases 3, 4
     and 6 (the CAGRA one after a fused search); ``multi``: phase 11
     (:func:`multi_phase`) on phase 3's data and the indexes of phases 4, 5
-    and 6. Each builds the kernels it launches first. ``tree`` is the tree whose
+    and 6; ``replica``: phase 12 (:func:`replica_phase`) on phase 3's data
+    and IVF-Flat index (its churn rows follow phase 3's draws, not phase
+    8's). Each builds the kernels it launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
@@ -3142,6 +3559,19 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
                                                         graph_degree=16, build_algo="ivf_pq"),
                          res=res, pq_index=pq_index)
         multi_phase(card, res, X, X_card, Q, gt_i, 10, sizes, pq_index, cg, rq_index)
+    if "replica" in parts:
+        _, build_s, log = ivf_scan.build_kernel(True)
+        emit(card, phase="build", kernel="fused_list_topk", build_s=build_s)
+        res = Resources(device="cuda", seed=seed)
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
+        gen = Clustered(rng, 128, 4096)
+        X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        sizes = request_sizes(rng, Q.shape[0])
+        index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024), res=res)
+        _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
+        replica_phase(card, res, index, X, Q, gt_i, gen, 10, seed, sizes)
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -3693,6 +4123,9 @@ def main() -> int:
     # ---- phase 11: the distributed build, query-sharded and tiered sharded --
     multi = multi_phase(card, res, X, X_card, Q, gt_i, k, sizes, pq_index, cg, rq_index)
 
+    # ---- phase 12: replicated serving and the rest of obs --------------------
+    replica = replica_phase(card, res, index, X, Q, gt_i, gen, k, args.seed, sizes)
+
     rows = []
     for name, src, line, launches, t in (
             ("fused_list_topk", "ivf_scan.cu", "raft_tpu/ops/pallas/ivf_scan.py:321", flat_launches, b1),
@@ -3713,7 +4146,8 @@ def main() -> int:
                      "bound_by": t["bound_by"], "library_ms": None})
         if name == "fused_list_topk":  # phase 8's served run: main and delta scans
             rows[-1].update(launches_mutable=mutable["launches"],
-                            launches_mutable_delta=mutable["serve"]["b1_launches_delta"])
+                            launches_mutable_delta=mutable["serve"]["b1_launches_delta"],
+                            launches_replica=replica["launches"])
         if name in tiered:  # phase 10: the host tier's scans
             rows[-1]["launches_tiered"] = tiered[name]
         if name in multi:  # phase 11's (b)-(f)

@@ -407,6 +407,9 @@ class Compactor:
             with self._state_lock:
                 self.worker_restarts += 1
             obs.inc("mutable.maintenance.worker_restarts", index=self.name)
+            # flight-recorder trigger: rides the same outside-lock spot
+            # as the restart counter
+            obs.recorder.note_worker_death(self.name)
             self.start()
         reason = None
         if self.policy is not None and not self.busy() and not self._stop.is_set():

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import threading
 import time
 from typing import BinaryIO, Dict, Optional, Tuple
 
@@ -567,14 +568,21 @@ def auto_mode(device, nq: int, eligible: bool) -> str:
     return "fused" if torch.device(device).type == "cuda" and eligible else "xla"
 
 
+#: serializes the first fill of an index's fused caches: replica pumps on
+#: their own threads may serve one shared index, and two first calls would
+#: otherwise both build the table (twice its memory) and race the seed dict
+_FILL_LOCK = threading.Lock()
+
+
 def _fused_table(index: CagraIndex, dtype) -> torch.Tensor:
     """Build (once) and cache the ``[n, deg, d]`` neighbour table on the
     index (a plain attribute: a rebuilt index starts without one)."""
     dtype = _TABLE_DTYPES.get(dtype, dtype)
-    cached = getattr(index, "_fused_table_cache", None)
-    if cached is None or cached[0] != dtype:
-        cached = (dtype, build_neighbor_table(index.dataset, index.graph, dtype=dtype))
-        index._fused_table_cache = cached
+    with _FILL_LOCK:
+        cached = getattr(index, "_fused_table_cache", None)
+        if cached is None or cached[0] != dtype:
+            cached = (dtype, build_neighbor_table(index.dataset, index.graph, dtype=dtype))
+            index._fused_table_cache = cached
     return cached[1]
 
 
@@ -583,14 +591,15 @@ def _fused_seeds(index: CagraIndex, sample: int):
     their squared norms: made once on the index's device and cached on the
     index per sample (a plain attribute, as the table is), so a search
     neither copies ids from the host nor gathers the rows again."""
-    cache = getattr(index, "_fused_seed_cache", None)
-    if cache is None:
-        cache = index._fused_seed_cache = {}
-    if sample not in cache:
-        ids = strided_seed_ids(index.size, sample, index.device)
-        rows = ids.to(torch.int64)
-        cache[sample] = (ids, index.dataset[rows].to(torch.float32), index.sqnorms[rows])
-    return cache[sample]
+    with _FILL_LOCK:
+        cache = getattr(index, "_fused_seed_cache", None)
+        if cache is None:
+            cache = index._fused_seed_cache = {}
+        if sample not in cache:
+            ids = strided_seed_ids(index.size, sample, index.device)
+            rows = ids.to(torch.int64)
+            cache[sample] = (ids, index.dataset[rows].to(torch.float32), index.sqnorms[rows])
+        return cache[sample]
 
 
 def _cagra_fused_impl(table, graph, seed_rows, seed_norms, queries, init_ids, *, k: int,

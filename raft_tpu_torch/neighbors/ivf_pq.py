@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import threading
 import warnings
 from typing import BinaryIO, Optional, Tuple
 
@@ -721,17 +722,23 @@ def extend(index: IvfPqIndex, new_vectors, new_ids=None) -> IvfPqIndex:
 # ---------------------------------------------------------------------------
 
 
+#: serializes the first fill of the group tables: replica pumps on their
+#: own threads may serve one shared index
+_FILL_LOCK = threading.Lock()
+
+
 def _fused_group_tables(index: IvfPqIndex, group: int):
     """B2's group tables (:func:`raft_tpu_torch.ops.pq_scan.group_tables`)
     of the index without a filter, for units of ``group`` lists: built at
     the first fused search and kept on the index (a plain attribute, so a
     rebuilt or extended index starts without them)."""
-    cache = index.__dict__.setdefault("_fused_group_tables", {})
-    if group not in cache:
-        n_lists, m = index.list_indices.shape
-        cache[group] = group_tables((index.list_indices >= 0).reshape(n_lists // group, 1,
-                                                                       group * m))
-    return cache[group]
+    with _FILL_LOCK:
+        cache = index.__dict__.setdefault("_fused_group_tables", {})
+        if group not in cache:
+            n_lists, m = index.list_indices.shape
+            cache[group] = group_tables((index.list_indices >= 0).reshape(n_lists // group, 1,
+                                                                           group * m))
+        return cache[group]
 
 
 def _probe_search(index: IvfPqIndex, codes_u, queries, filter_bits, *, k: int, n_probes: int,

@@ -1,7 +1,7 @@
 """raft_tpu_torch.obs — observability: metrics registry, request trace
-identity and device-sync-aware spans (``raft_tpu.obs`` counterpart;
-its export, flight recorder, SLO and time-series modules are not ported
-yet).
+identity, device-sync-aware spans, Perfetto/Chrome-trace export,
+bounded time series with drift detectors, SLO burn-rate tracking and the
+flight recorder (``raft_tpu.obs`` counterpart, every module of it).
 
 ::
 
@@ -15,6 +15,13 @@ yet).
 
 Disabled by default; enable with ``RAFT_TPU_OBS=1`` or ``obs.enable()``.
 """
+from raft_tpu_torch.obs.export import (
+    chrome_trace,
+    load_trace,
+    validate_trace,
+    write_metrics_jsonl,
+    write_trace,
+)
 from raft_tpu_torch.obs.metrics import (
     DEFAULT_BUCKETS,
     Counter,
@@ -36,27 +43,57 @@ from raft_tpu_torch.obs.request import (
     new_trace_id,
     trace_scope,
 )
+from raft_tpu_torch.obs import recorder, timeseries
+from raft_tpu_torch.obs.recorder import FlightRecorder, list_bundles, load_bundle
+from raft_tpu_torch.obs.slo import SLO, SloStatus, SloTracker
 from raft_tpu_torch.obs.spans import Span, span, traced
+from raft_tpu_torch.obs.timeseries import (
+    Anomaly,
+    EwmaDetector,
+    HistogramSeries,
+    SeriesBank,
+    TimeSeries,
+    default_detectors,
+)
 
 __all__ = [
+    "Anomaly",
     "DEFAULT_BUCKETS",
     "Counter",
+    "EwmaDetector",
+    "FlightRecorder",
     "Gauge",
     "Histogram",
+    "HistogramSeries",
     "NULL_SCOPE",
     "Registry",
+    "SLO",
+    "SeriesBank",
+    "SloStatus",
+    "SloTracker",
     "Span",
+    "TimeSeries",
+    "chrome_trace",
     "current_trace",
+    "default_detectors",
     "disable",
     "enable",
     "inc",
     "is_enabled",
     "iter_trace_spans",
+    "list_bundles",
+    "load_bundle",
+    "load_trace",
     "new_trace_id",
     "observe",
+    "recorder",
     "registry",
     "set_gauge",
     "span",
+    "timeseries",
     "trace_scope",
     "traced",
+    "validate_trace",
+    "write_metrics_jsonl",
+    "write_trace",
 ]

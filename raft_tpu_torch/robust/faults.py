@@ -14,9 +14,12 @@ for one package installs in the other. The port fires every point of a
 module it has: ``pallas.pq_scan`` (before B2 and B3), ``pallas.cagra_search``
 (before each B4 batch), ``comms.ring_topk`` (``kind="scan"`` for the scan
 ring), ``comms.all_gather``, ``serialize.load``, ``sharded_ann.shard_scan``
-(the health probe), ``serve.dispatch``, ``wal.append``, ``manifest.swap``
-and ``compact.*``. An error injected before a kernel propagates: the port
-has no fallback.
+(the health probe), ``serve.dispatch``, ``wal.append``, ``manifest.swap``,
+``compact.*``, ``host.fetch``, the replica seams (``replica.dispatch``,
+``wal.ship``, ``replica.apply``, ``lease.acquire``, ``lease.renew``,
+``transport.read``, ``election.promote``) and ``recorder.dump``. An error
+injected before a kernel propagates: the port has no fallback. A firing is
+also noted by the installed flight recorder (:mod:`raft_tpu_torch.obs.recorder`).
 
 Usage::
 
@@ -184,6 +187,11 @@ class FaultRegistry:
                 continue
             kind = type(spec.error).__name__ if spec.error is not None else "latency"
             obs.inc("faults.fired", point=point, kind=kind)
+            # flight-recorder hook: rides the same outside-lock spot as
+            # the counter. The note path is lock-free by contract — this
+            # seam may be firing inside another subsystem's critical
+            # section (e.g. wal.append under the writer lock)
+            obs.recorder.note_fault(point, kind)
             if spec.latency_s > 0.0:
                 time.sleep(spec.latency_s)
             if spec.error is not None:

@@ -174,6 +174,10 @@ class CircuitBreaker:
             return
         self._state = to
         obs.inc("robust.breaker.transitions", target=self.target, to=to)
+        # flight-recorder hook: the breaker is lock-free and its owners
+        # call record_* with their locks released (the replica group's
+        # edge-free contract), so an open-trip may dump a bundle inline
+        obs.recorder.note_breaker(self.target, to)
         self._emit_state()
 
     def allow(self) -> bool:

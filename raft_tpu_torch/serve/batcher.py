@@ -215,3 +215,15 @@ class MicroBatcher:
                 )
             )
         return batch, expired
+
+    def drain_requests(self) -> List[Request]:
+        """Remove and return every queued request without completing its
+        future. Replica failover (:mod:`raft_tpu_torch.replica`) evacuates
+        a dead replica's queue with it: the requests are submitted again on
+        a healthy engine and their group-level futures complete there; the
+        engine-level futures drained here are abandoned."""
+        with self._lock:
+            out = list(self._queue)
+            self._queue = deque()
+            self._rows = 0
+        return out

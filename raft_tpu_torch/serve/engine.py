@@ -60,8 +60,18 @@ registration whose corpus or traffic drifted (``plan.build`` and
 ``plan.flip`` spans, ``plan.decisions``, ``serve.plan_flips``,
 ``serve.plan.recosts``, ``serve.plan.epoch``). The planner chooses what the
 searches' inline ``auto`` rules choose, so serving gives the same bits with
-the gate on or off. The JAX engine's SLO, replica and flight-recorder hooks
-are not ported yet.
+the gate on or off.
+
+SLOs and the replica layer: :meth:`~ServingEngine.set_slo` declares a
+latency/availability objective an index (a
+:class:`~raft_tpu_torch.obs.SloTracker` on the engine's clock, which
+``clock=`` injects for the batcher and the trackers alike); every completed,
+failed or expired request records against it, :meth:`~ServingEngine.health`
+reports its status and :meth:`~ServingEngine.slo_burn` its fast-window burn.
+:meth:`~ServingEngine.evict_queued` evacuates the queue of a replica
+declared dead (:class:`raft_tpu_torch.replica.ReplicaGroup`). The
+maintenance tick samples the installed flight recorder
+(:mod:`raft_tpu_torch.obs.recorder`) and a plan flip notes itself there.
 """
 from __future__ import annotations
 
@@ -182,7 +192,8 @@ class ServingEngine:
                  maintenance_interval_ms: float = 10.0,
                  slow_shard_s: Optional[float] = 0.25,
                  hbm_budget_bytes: Optional[int] = None,
-                 host_budget_bytes: Optional[int] = None):
+                 host_budget_bytes: Optional[int] = None,
+                 clock: Optional[Callable[[], float]] = None):
         self.max_batch = int(max_batch)
         self.res = ensure_resources(res)
         #: device-memory budget of the placement planner (None: unplanned,
@@ -197,7 +208,7 @@ class ServingEngine:
         #: per-registration sharded verdicts (``hbm_model.ShardedPlacement``)
         self.sharded_placements: Dict[str, object] = {}
         self.batcher = MicroBatcher(max_batch=max_batch, max_wait_ms=max_wait_ms,
-                                    capacity=queue_capacity)
+                                    capacity=queue_capacity, clock=clock)
         self.cache = ProgramCache()
         #: a health probe slower than this marks the shard unhealthy: serve
         #: degraded coverage now rather than wait out a slow shard (None: no
@@ -207,6 +218,8 @@ class ServingEngine:
         self.maintenance_interval_ms = float(maintenance_interval_ms)
         self._last_maint = -float("inf")
         self._indexes: Dict[str, _Registration] = {}
+        #: per-index SLO trackers (see :meth:`set_slo` / :meth:`health`)
+        self._slos: Dict[str, obs.SloTracker] = {}
 
     # -- registration ------------------------------------------------------
 
@@ -451,6 +464,9 @@ class ServingEngine:
         batch, expired = self.batcher.next_batch(now)
         for r in expired:
             obs.inc("serve.rejections", reason="deadline_expired", index_id=r.group[0])
+            tracker = self._slos.get(r.group[0])
+            if tracker is not None:
+                tracker.record(ok=False)  # shed work burns the budget
         if batch:
             self._dispatch(batch, now)
         if obs.is_enabled():
@@ -469,11 +485,51 @@ class ServingEngine:
     def queue_depth(self) -> int:
         return self.batcher.depth_rows()
 
+    def evict_queued(self) -> List[Request]:
+        """Evacuate every queued request without completing its future
+        (:meth:`~raft_tpu_torch.serve.batcher.MicroBatcher.drain_requests`).
+        The replica layer calls this when this engine's replica is declared
+        dead, then submits the evicted work again on a healthy replica."""
+        out = self.batcher.drain_requests()
+        if obs.is_enabled():
+            obs.set_gauge("serve.queue_depth", self.batcher.depth_rows())
+        return out
+
+    # -- SLOs and health ---------------------------------------------------
+
+    def set_slo(self, index_id: str, *, latency_ms: Optional[float] = None,
+                target: float = 0.999, window_s: float = 3600.0,
+                fast_window_s: float = 60.0, slow_window_s: float = 300.0,
+                burn_threshold: float = 10.0) -> obs.SloTracker:
+        """Declare a latency/availability objective for a registered index.
+        Every completed request records against it: a request is bad when it
+        fails, is shed past its deadline, or (with ``latency_ms``) finishes
+        slower than the threshold, arrival to completion on the engine
+        clock. The tracker shares that clock. Returns the tracker;
+        :meth:`health` reports its :meth:`~raft_tpu_torch.obs.SloTracker.evaluate`."""
+        self._reg(index_id)  # must be registered
+        tracker = obs.SloTracker(
+            obs.SLO(index_id=index_id, latency_ms=latency_ms, target=target,
+                    window_s=window_s, fast_window_s=fast_window_s,
+                    slow_window_s=slow_window_s, burn_threshold=burn_threshold),
+            clock=self.batcher.now,
+        )
+        self._slos[index_id] = tracker
+        return tracker
+
+    def slo_burn(self, index_id: str) -> Optional[float]:
+        """The index's fast-window SLO burn rate now (None without an SLO):
+        what the replica autoscaler holds against its scale-up threshold."""
+        tracker = self._slos.get(index_id)
+        if tracker is None:
+            return None
+        return tracker.evaluate().burn_fast
+
     def health(self) -> Dict[str, object]:
         """Health snapshot: queue and program-cache pressure, the obs gate
-        and dropped spans, and per-index registration state. ``slo`` is
-        None: SLO trackers (``set_slo``) are not ported yet, and None is what
-        the JAX engine reports for an index without one."""
+        and dropped spans, and per-index registration state with its SLO
+        status (``slo``: :meth:`~raft_tpu_torch.obs.SloTracker.evaluate` as a
+        dict, None for an index without an SLO)."""
         cache_stats = self.cache.stats()
         out: Dict[str, object] = {
             "queue": {
@@ -498,8 +554,9 @@ class ServingEngine:
                 "algo": reg.algo,
                 "mode": reg.mode,
                 "generation": max(reg.last_generation, 0),
-                "slo": None,
             }
+            tracker = self._slos.get(index_id)
+            out["indexes"][index_id]["slo"] = tracker.evaluate().as_dict() if tracker else None
         return out
 
     # -- maintenance -------------------------------------------------------
@@ -509,13 +566,15 @@ class ServingEngine:
         that carries a :class:`~raft_tpu_torch.mutable.Compactor`, then the
         planner's drift check (:meth:`_replan_tick`). Driven from
         :meth:`step` (rate-limited by ``maintenance_interval_ms``);
-        callable directly by deployments with their own schedulers. The
-        JAX engine's tick also samples its flight recorder, which the port
-        does not have yet."""
+        callable directly by deployments with their own schedulers. Last, the
+        flight recorder's sampler tick (a no-op unless a recorder is installed
+        and obs is on): it keeps the serving time series and drains a dump a
+        fault latched."""
         for reg in list(self._indexes.values()):
             if reg.compactor is not None:
                 reg.compactor.tick()
         self._replan_tick()
+        obs.recorder.tick()
 
     def shutdown(self, wait: bool = True) -> None:
         """Stop every engine-owned background compactor. Queued requests
@@ -712,6 +771,9 @@ class ServingEngine:
             reg.bucket_counts = {}
             obs.inc("serve.plan_flips", index_id=reg.index_id)
             obs.set_gauge("serve.plan.epoch", float(new.epoch), index_id=reg.index_id)
+            # flight-recorder trigger: the swap is complete and no engine
+            # lock is held here
+            obs.recorder.note_plan_flip(reg.index_id, int(new.epoch))
 
     def _build_program(self, reg: _Registration, bucket: int, k: int, plan=None) -> Callable:
         from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
@@ -784,6 +846,7 @@ class ServingEngine:
         reg.last_dispatch_t = now
         key = ProgramKey(reg.index_id, reg.algo, bucket, k, self._program_params(reg, bucket),
                          generation)
+        tracker = self._slos.get(reg.index_id)
         # the batch's trace IDs ride the dispatch thread: every span below
         # carries them; NULL_SCOPE keeps the disabled path allocation-free
         scope = (obs.trace_scope(tuple(r.trace_id for r in batch)) if obs.is_enabled()
@@ -808,6 +871,8 @@ class ServingEngine:
             obs.inc("serve.dispatch_errors", index_id=reg.index_id, kind=type(e).__name__)
             for r in batch:
                 r.future.set_exception(e)
+                if tracker is not None:
+                    tracker.record(ok=False)
             return
         if obs.is_enabled():
             obs.inc("serve.batches", index_id=reg.index_id, algo=reg.algo)
@@ -843,6 +908,8 @@ class ServingEngine:
                 generation=generation,
                 trace_id=r.trace_id,
             ))
+            if tracker is not None:
+                tracker.record(latency_ms=(t_done - r.t_arrival) * 1e3)
             off += m
 
 

@@ -5,7 +5,9 @@ Tracked locks record the acquisition edges real threads actually take,
 and each edge is asserted against the port's own manifest,
 ``raft_tpu_torch/utils/lock_order.toml``, which declares the locks the
 port creates (``mutable.lock``, ``mutable.compact_mutex``,
-``compactor.state``, ``obs.registry``, ``robust.faults``), the edges
+``compactor.state``, ``obs.registry``, ``robust.faults``, and the
+edge-free leaves ``obs.slo``, ``obs.recorder``, ``replica.group``,
+``replica.router``, ``replica.lease``, ``replica.autoscaler``), the edges
 permitted between them and the fields each guards.
 
 Gated by ``RAFT_TPU_LOCKCHECK`` (default **off**), like the

@@ -389,7 +389,8 @@ def test_lock_manifest_is_the_jax_manifest_cut_to_the_port_s_locks():
     ref = tlockcheck._load_toml(os.path.join(REPO, "tools", "graft_lint", "lock_order.toml"))
     names = {e["name"] for e in port["lock"]}
     assert names == {"mutable.lock", "mutable.compact_mutex", "compactor.state", "obs.registry",
-                     "robust.faults"}
+                     "robust.faults", "obs.slo", "obs.recorder", "replica.group",
+                     "replica.router", "replica.lease", "replica.autoscaler"}
     ref_locks = {e["name"]: e for e in ref["lock"]}
     for e in port["lock"]:
         assert (e["attr"], e["classes"]) == (ref_locks[e["name"]]["attr"],
