@@ -1,7 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica,prims [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -158,6 +158,19 @@ Phases, in order; any failure exits non-zero:
    recorder and an SLO the backlog breaches: exactly one CRC-valid
    bundle that round-trips through ``load_bundle``, and with obs off the
    backlog bit-equal to (a)'s.
+13. the search path's primitives (:func:`prims_phase`), plain PyTorch on
+   the card: ``pairwise_distance`` under each of the 20 computable metrics
+   on the card against the CPU at 256 x 4,096 x 128 (inputs fit to the
+   metric; largest difference and tolerance printed), each timed at the
+   bench's 2,048 x 16,384 x 128; exact ``brute_force.search`` of one
+   128-query batch over the 1M rows under each accumulation metric against
+   ``select_k`` of the whole ``pairwise_distance`` matrix; ``mode="approx"``
+   over the 10,000 queries equal to the exact mode, recall against exact
+   kNN; ``BatchKQuery`` pages 0-4 equal to one k = 160 search;
+   ``masked_l2_nn`` at 16,384 x 16,384 x 64 (32 groups) against a masked
+   whole-matrix argmin, and on integer rows (exact distances, many ties)
+   the lowest of the tied ids exactly; ``approx_select_k`` (512 x 65,536, k = 64) and
+   ``rbf_kernel`` (4,096 x 4,096 x 128) timed. No hand kernel runs here.
 
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
 256, with ties, signed zeros, padding and ``inf``) against its plain
@@ -173,7 +186,7 @@ engine and of the gather merge into host and device time
 kernel's stage clock (``fused_ring_topk_split``).
 
 Each kernel's launch count is zeroed just before its path runs (phases
-3-12) and read just after. ``--quick`` runs phases 1-2 only; ``--profile``
+3-12) and read just after (phase 13 launches none). ``--quick`` runs phases 1-2 only; ``--profile``
 adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
 IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 (:func:`run_phases`): ``paths`` times the IVF-Flat search paths per call
@@ -183,7 +196,7 @@ phase 2's B3 checks, ``rabitq`` phase 5, ``b1`` and ``b4`` phase 2's B1
 or B4 checks and then that kernel at the main path's shapes on the 1M
 index, ``mutable`` phase 8, ``robust`` phase 9 (with ``--tree`` only the
 sharded backlog's QPS, :func:`sharded_serve_qps`), ``tiered`` phase 10,
-``multi`` phase 11, ``replica`` phase 12;
+``multi`` phase 11, ``replica`` phase 12, ``prims`` phase 13;
 with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
@@ -3332,6 +3345,277 @@ def multi_phase(card, res, X, X_card, Q, gt_i, k: int, sizes, pq_index, cg, rq_i
     return launches
 
 
+#: phase 13's card-against-CPU tolerance of ``pairwise_distance``: the card
+#: and the CPU add each f32 sum in another order (d = 128)
+PRIMS_RTOL = PRIMS_ATOL = 1e-4
+#: phase 13's shapes: the card-against-CPU check (m, n, d), then the bench's
+#: (``raft_tpu/bench/prims.py``): pairwise (m, n, d), masked 1-NN (m, n, d,
+#: groups), selection (rows, n, k) and the RBF gram (m, n, d)
+PRIMS_SHAPES = dict(check=(256, 4096, 128), pairwise=(2048, 16384, 128),
+                    masked=(16384, 16384, 64, 32), select=(512, 65536, 64),
+                    rbf=(4096, 4096, 128))
+
+
+def input_family(metric) -> str:
+    """Which inputs fit ``metric``: ``nonneg`` (Hellinger, KL and
+    Jensen-Shannon take logs or roots), ``binary`` (Jaccard, Dice,
+    Russel-Rao and Hamming count set entries), ``haversine`` (d = 2
+    radians) or ``normal``."""
+    from raft_tpu_torch.ops.distance import DistanceType as DT
+
+    if metric == DT.Haversine:
+        return "haversine"
+    if metric in (DT.HellingerExpanded, DT.KLDivergence, DT.JensenShannon):
+        return "nonneg"
+    if metric in (DT.JaccardExpanded, DT.DiceExpanded, DT.RusselRaoExpanded, DT.HammingUnexpanded):
+        return "binary"
+    return "normal"
+
+
+def metric_inputs(rng, family: str, m: int, n: int, d: int):
+    """Inputs of ``family`` (:func:`input_family`): non-negative rows
+    summing to 1 (a fifth of the entries 0), 0/1 rows, (lat, lon) radians
+    or normal rows."""
+    if family == "haversine":
+        def pts(k):
+            return np.stack([rng.uniform(-np.pi / 2, np.pi / 2, k),
+                             rng.uniform(-np.pi, np.pi, k)], 1).astype(np.float32)
+        return pts(m), pts(n)
+    if family == "nonneg":
+        def rows(k):
+            v = rng.uniform(0.0, 1.0, (k, d)) * (rng.random((k, d)) > 0.2)
+            return (v / np.maximum(v.sum(1, keepdims=True), 1e-6)).astype(np.float32)
+        return rows(m), rows(n)
+    if family == "binary":
+        return ((rng.random((m, d)) < 0.4).astype(np.float32),
+                (rng.random((n, d)) < 0.4).astype(np.float32))
+    return (rng.standard_normal((m, d), dtype=np.float32),
+            rng.standard_normal((n, d), dtype=np.float32))
+
+
+def fit_rows(metric, X):
+    """The 1M rows fit to an accumulation metric on the card: ``|X|`` for
+    KL and Jensen-Shannon (logs of non-negative values), ``X > 0`` as 0/1
+    for Hamming, ``X`` itself otherwise."""
+    from raft_tpu_torch.ops.distance import DistanceType as DT
+
+    if metric in (DT.KLDivergence, DT.JensenShannon):
+        return X.abs()
+    if metric == DT.HammingUnexpanded:
+        return (X > 0).to(torch.float32)
+    return X
+
+
+def same_topk_of_matrix(what: str, vals, ids, D, k: int) -> float:
+    """``(vals, ids)`` [nq, k] against the whole matrix ``D`` [nq, n]: the
+    values allclose to ``select_k``'s of ``D`` (PRIMS_RTOL/ATOL), each id
+    distinct in its row and holding its value in ``D``. Returns the share
+    of ids equal to ``select_k``'s (the rest are ties in another order)."""
+    from raft_tpu_torch.ops.select_k import select_k
+
+    rv, ri = select_k(D, k)
+    if not torch.allclose(vals, rv, rtol=PRIMS_RTOL, atol=PRIMS_ATOL):
+        raise AssertionError(f"{what}: values differ from the whole matrix's top-k by "
+                             f"{float((vals - rv).abs().max())}")
+    held = torch.gather(D, 1, ids.to(torch.int64))
+    if not torch.allclose(held, vals, rtol=PRIMS_RTOL, atol=PRIMS_ATOL):
+        raise AssertionError(f"{what}: an id does not hold its value in the whole matrix")
+    if (torch.sort(ids, dim=1).values.diff(dim=1) == 0).any():
+        raise AssertionError(f"{what}: an id repeats in its row")
+    return float((ids == ri).to(torch.float32).mean())
+
+
+def prims_phase(card, res, X_card, Qt, gt_i, k: int, seed: int) -> dict:
+    """Phase 13: the search path's primitives, plain PyTorch on the card
+    (:func:`run_phases`'s ``prims``). (a) ``pairwise_distance`` under each
+    of the 20 computable metrics on the card against the CPU at 256 x 4,096
+    x 128 (inputs fit to the metric, :func:`metric_inputs`), then timed on
+    the card at the bench's 2,048 x 16,384 x 128; (b) exact
+    ``brute_force.search`` of one 128-query batch over the 1M rows under
+    each accumulation metric (the tiled running merge) against
+    ``select_k`` of the whole ``pairwise_distance`` matrix; (c)
+    ``search(mode="approx")`` of the 10,000 queries at k = 10 against the
+    exact mode and ``gt_i``; (d) ``BatchKQuery`` pages 0-4 at 32 wide
+    against one k = 160 search; (e) ``masked_l2_nn`` at 16,384 x 16,384 x
+    64 with 32 groups against a masked whole-matrix argmin, and on integer
+    rows against its lowest tied index exactly; (f)
+    ``approx_select_k`` at 512 x 65,536, k = 64, and ``rbf_kernel`` at
+    4,096 x 4,096 x 128, timed."""
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops import DistanceType, masked_l2_nn, pairwise_distance, rbf_kernel
+    from raft_tpu_torch.ops.distance import EXPANDED
+    from raft_tpu_torch.ops.select_k import approx_select_k, select_k
+    from raft_tpu_torch.stats.recall import neighborhood_recall
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 13])
+    out = {"metrics": {}}
+    metrics = [m for m in DistanceType if m != DistanceType.Precomputed]
+    timed = {}  # the bench-shape inputs on the card, one draw a family
+    t_cpu = 0.0
+    for metric in metrics:
+        p = 3.0 if metric == DistanceType.LpUnexpanded else 2.0
+        family = input_family(metric)
+        x, y = metric_inputs(rng, family, *PRIMS_SHAPES["check"])
+        t0 = time.perf_counter()
+        ref = pairwise_distance(torch.from_numpy(x), torch.from_numpy(y), metric, metric_arg=p)
+        t_cpu += time.perf_counter() - t0
+        got = pairwise_distance(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(), metric,
+                                metric_arg=p).cpu()
+        err = float((got - ref).abs().max())
+        scaled = float(((got - ref).abs() / (PRIMS_ATOL + PRIMS_RTOL * ref.abs())).max())
+        if family not in timed:
+            timed[family] = tuple(torch.from_numpy(a).cuda()
+                                  for a in metric_inputs(rng, family, *PRIMS_SHAPES["pairwise"]))
+        xb, yb = timed[family]
+        ms = cuda_ms(lambda: pairwise_distance(xb, yb, metric, metric_arg=p),
+                     reps=10 if metric in EXPANDED else 2)
+        out["metrics"][metric.name] = dict(max_abs_err=err, ms=ms)
+        emit(card, phase="prims", metric="pairwise_distance", distance=metric.name,
+             family="expanded" if metric in EXPANDED else (
+                 "haversine" if metric == DistanceType.Haversine else "accumulation"),
+             inputs=family,
+             max_abs_err=err, scaled_err=scaled, rtol=PRIMS_RTOL, atol=PRIMS_ATOL,
+             card_vs_cpu_shape=list(PRIMS_SHAPES["check"]), ms=ms,
+             timed_shape=list(PRIMS_SHAPES["pairwise"]))
+        if not scaled <= 1.0:
+            raise AssertionError(f"pairwise_distance {metric.name}: card and CPU differ by {err} "
+                                 f"(above rtol {PRIMS_RTOL}, atol {PRIMS_ATOL})")
+    emit(card, phase="prims", metric="pairwise_cpu_s", value=t_cpu, metrics=len(metrics))
+    del timed
+
+    # (b) the accumulation metrics at full width: one serving batch over 1M rows
+    q128 = Qt[:128]
+    for metric in [m for m in metrics if m not in EXPANDED and m != DistanceType.Haversine]:
+        p = 3.0 if metric == DistanceType.LpUnexpanded else 2.0
+        Xf, qf = fit_rows(metric, X_card), fit_rows(metric, q128)
+        index = brute_force.build(Xf, metric, metric_arg=p, res=res)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # one call; (a) ran the same elementwise ops first
+        vals, ids = brute_force.search(index, qf, k)
+        torch.cuda.synchronize()
+        search_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        D = pairwise_distance(qf, Xf, metric, metric_arg=p)
+        torch.cuda.synchronize()
+        matrix_ms = (time.perf_counter() - t0) * 1e3
+        same = same_topk_of_matrix(f"brute force {metric.name}", vals, ids, D, k)
+        out["metrics"][metric.name].update(search_ms=search_ms)
+        emit(card, phase="prims", metric="brute_force_accumulation", distance=metric.name,
+             rows=X_card.shape[0], queries=128, k=k, search_ms=search_ms,
+             whole_matrix_ms=matrix_ms, ids_equal_to_whole_matrix=same)
+        del index, Xf, D
+
+    # (c) approximate mode at the full 10,000 queries on the 1M index
+    index = brute_force.build(X_card, "sqeuclidean", res=res)
+    modes = {}
+    for mode in ("exact", "approx"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        modes[mode] = brute_force.search(index, Qt, k, mode=mode)
+        torch.cuda.synchronize()
+        modes[mode] = modes[mode] + ((time.perf_counter() - t0) * 1e3,)
+    (ev, ei, e_ms), (av, ai, a_ms) = modes["exact"], modes["approx"]
+    recall = neighborhood_recall(ai, gt_i)
+    emit(card, phase="prims", metric="brute_force_approx", queries=Qt.shape[0],
+         rows=X_card.shape[0], k=k, exact_ms=e_ms, approx_ms=a_ms,
+         ids_equal_to_exact=bool(torch.equal(ai, ei)), recall=recall)
+    if not torch.equal(ai, ei) or not torch.equal(av, ev) or recall < 0.999:
+        raise AssertionError(f"approx mode differs from exact (recall {recall})")
+    out.update(approx_ms=a_ms, exact_ms=e_ms, approx_recall=recall)
+
+    # (d) BatchKQuery pages 0-4 against one k = 160 search
+    fv, fi = brute_force.search(index, q128, 160)
+    pages = brute_force.BatchKQuery(index, q128, batch_size=32)
+    for i in range(5):
+        page = pages.batch(i)
+        if not (torch.equal(page.indices, fi[:, 32 * i : 32 * (i + 1)])
+                and torch.equal(page.distances, fv[:, 32 * i : 32 * (i + 1)])):
+            raise AssertionError(f"BatchKQuery page {i} differs from the k = 160 search")
+    emit(card, phase="prims", metric="batch_k_query", pages=5, width=32, queries=128,
+         equal_to_k160=True, fetched_k=pages._k)
+    del index, modes, ev, ei, av, ai, fv, fi
+
+    # (e) masked_l2_nn at the bench's shape against a masked whole-matrix argmin
+    m, n, d, ng = PRIMS_SHAPES["masked"]
+    x = torch.from_numpy(rng.standard_normal((m, d), dtype=np.float32)).cuda()
+    y = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda()
+    adj = torch.from_numpy(rng.random((m, ng)) < 0.5).cuda()
+    adj[:4] = False  # rows with no adjacent group: (inf, -1)
+    dev = x.device
+    gi = torch.arange(1, ng + 1, dtype=torch.int32, device=dev) * (n // ng)
+    gid = torch.clamp(torch.searchsorted(gi.to(torch.int64),
+                                         torch.arange(n, device=dev), right=True), 0, ng - 1)
+    cols = torch.arange(n, device=dev)
+
+    def masked_argmin(xx, yy):
+        """The masked whole matrix's row minima and their lowest column
+        (-1 on a row with no adjacent group)."""
+        D = pairwise_distance(xx, yy, "sqeuclidean")
+        D = torch.where(adj[:, gid], D, torch.full_like(D, float("inf")))
+        rmin = D.min(dim=1).values
+        first = torch.where(D == rmin[:, None], cols, n).min(dim=1).values
+        ok = torch.isfinite(rmin)
+        return D, rmin, torch.where(ok, first, -1).to(torch.int32), ok
+
+    bv, bi = masked_l2_nn(x, y, adj, gi)
+    mask_ms = cuda_ms(lambda: masked_l2_nn(x, y, adj, gi), reps=5)
+    D, rmin, first, ok = masked_argmin(x, y)
+    if not (torch.equal(bi[~ok], first[~ok]) and torch.isinf(bv[~ok]).all()):
+        raise AssertionError("masked_l2_nn: a row with no adjacent group is not (inf, -1)")
+    if not torch.allclose(bv[ok], rmin[ok], rtol=1e-5, atol=1e-4):
+        raise AssertionError("masked_l2_nn: values differ from the masked whole matrix")
+    held = D[ok].gather(1, bi[ok].to(torch.int64)[:, None])[:, 0]
+    if not torch.allclose(held, rmin[ok], rtol=1e-5, atol=1e-4):
+        raise AssertionError("masked_l2_nn: an index does not hold the row's minimum")
+    # normal rows: the tiled and the whole matmul may round a near tie apart
+    same = float((bi == first).to(torch.float32).mean())
+    del D
+    # integer rows in -2..2: every distance is an exact integer in either
+    # arithmetic, so ties abound, within and across tiles, and the ids must
+    # be the lowest index among equal minima (jnp.argmin's rule) exactly
+    xi = torch.from_numpy(rng.integers(-2, 3, (m, d)).astype(np.float32)).cuda()
+    yi = torch.from_numpy(rng.integers(-2, 3, (n, d)).astype(np.float32)).cuda()
+    tv, ti = masked_l2_nn(xi, yi, adj, gi)
+    D, rmin, first, ok = masked_argmin(xi, yi)
+    tied_rows = int(((D == rmin[:, None]).sum(dim=1) > 1)[ok].sum())
+    ties_first = bool(torch.equal(ti, first) and torch.equal(tv[ok], rmin[ok]))
+    emit(card, phase="prims", metric="masked_l2_nn", shape=[m, n, d], groups=ng, ms=mask_ms,
+         ids_equal_to_whole_matrix=same, rows_without_group=int((~ok).sum()),
+         integer_rows_with_tied_minima=tied_rows, integer_ids_lowest_of_ties=ties_first)
+    if not ties_first or tied_rows == 0:
+        raise AssertionError(f"masked_l2_nn: on integer rows ({tied_rows} with tied minima) the "
+                             "ids are not the lowest index among equal minima")
+    out.update(masked_l2_nn_ms=mask_ms)
+    del x, y, xi, yi, adj, D
+
+    # (f) approx_select_k and the RBF gram matrix, timed
+    rows, width, kk = PRIMS_SHAPES["select"]
+    v = torch.from_numpy(rng.standard_normal((rows, width), dtype=np.float32)).cuda()
+    sv, si = approx_select_k(v, kk)
+    ev, ei = select_k(v, kk)
+    if not (torch.equal(sv, ev) and torch.equal(si, ei)):
+        raise AssertionError("approx_select_k differs from select_k")
+    sel_ms = cuda_ms(lambda: approx_select_k(v, kk), reps=10)
+    topk_ms = cuda_ms(lambda: torch.topk(v, kk, dim=1, largest=False), reps=10)
+    mr, nr, dr = PRIMS_SHAPES["rbf"]
+    xr = torch.from_numpy(rng.standard_normal((mr, dr), dtype=np.float32)).cuda()
+    yr = torch.from_numpy(rng.standard_normal((nr, dr), dtype=np.float32)).cuda()
+    g = rbf_kernel(xr, yr, gamma=0.1)
+    gref = torch.exp(-0.1 * torch.cdist(xr.double(), yr.double()) ** 2).float()
+    if not (torch.isfinite(g).all() and torch.allclose(g, gref, rtol=1e-4, atol=1e-5)):
+        raise AssertionError("rbf_kernel differs from its float64 reference")
+    rbf_ms = cuda_ms(lambda: rbf_kernel(xr, yr, gamma=0.1), reps=10)
+    emit(card, phase="prims", metric="approx_select_k", shape=[rows, width], k=kk, ms=sel_ms,
+         torch_topk_ms=topk_ms, equal_to_select_k=True)
+    emit(card, phase="prims", metric="rbf_kernel", shape=[mr, nr, dr], ms=rbf_ms,
+         max_abs_err_vs_f64=float((g - gref).abs().max()))
+    out.update(approx_select_k_ms=sel_ms, rbf_kernel_ms=rbf_ms)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(card, phase="prims", metric="phase_s", value=out["phase_s"])
+    return out
+
+
 def bucket_sizes_to(top: int) -> list:
     """1, 2, 4, ... ``top``."""
     return [1 << i for i in range(top.bit_length())]
@@ -3349,7 +3633,7 @@ def sizes_to(sizes, rows: int) -> list:
 
 #: the parts ``--phases`` runs alone
 PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable", "robust",
-               "tiered", "multi", "replica")
+               "tiered", "multi", "replica", "prims")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
@@ -3374,7 +3658,8 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
     (:func:`multi_phase`) on phase 3's data and the indexes of phases 4, 5
     and 6; ``replica``: phase 12 (:func:`replica_phase`) on phase 3's data
     and IVF-Flat index (its churn rows follow phase 3's draws, not phase
-    8's). Each builds the kernels it launches first. ``tree`` is the tree whose
+    8's); ``prims``: phase 13 (:func:`prims_phase`) on phase 3's data. Each
+    builds the kernels it launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
@@ -3572,6 +3857,16 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
         index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024), res=res)
         _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
         replica_phase(card, res, index, X, Q, gt_i, gen, 10, seed, sizes)
+    if "prims" in parts:
+        res = Resources(device="cuda", seed=seed)
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
+        gen = Clustered(rng, 128, 4096)
+        X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
+        prims_phase(card, res, torch.from_numpy(X).cuda(), torch.from_numpy(Q).cuda(), gt_i, 10,
+                    seed)
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -4125,6 +4420,9 @@ def main() -> int:
 
     # ---- phase 12: replicated serving and the rest of obs --------------------
     replica = replica_phase(card, res, index, X, Q, gt_i, gen, k, args.seed, sizes)
+
+    # ---- phase 13: the search path's primitives --------------------------------
+    prims_phase(card, res, X_card, Qt, gt_i, k, args.seed)
 
     rows = []
     for name, src, line, launches, t in (

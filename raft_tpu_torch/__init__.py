@@ -16,3 +16,7 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from raft_tpu_torch.core import Resources, default_resources  # noqa: E402
+
+__all__ = ["Resources", "default_resources", "__version__"]

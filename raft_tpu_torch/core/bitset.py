@@ -88,3 +88,39 @@ class Bitset:
         shifts = torch.arange(_BITS, dtype=torch.int32, device=self.bits.device)[None, :]
         unpacked = ((self.bits[:, None] >> shifts) & 1).to(torch.bool)
         return unpacked.reshape(-1)[: self.size]
+
+
+@dataclasses.dataclass
+class Bitmap:
+    """A 2-D bitset (``core/bitmap.hpp``): ``rows x cols`` bits over a
+    :class:`Bitset` of the row-major flattened indices, as in the JAX
+    package (per-query filters)."""
+
+    bitset: Bitset
+    rows: int
+    cols: int
+
+    @staticmethod
+    def from_mask(mask2d: torch.Tensor) -> "Bitmap":
+        rows, cols = mask2d.shape
+        return Bitmap(Bitset.from_mask(mask2d.reshape(-1)), int(rows), int(cols))
+
+    def test(self, row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
+        row = torch.as_tensor(row).to(torch.int64)
+        return self.bitset.test(row * self.cols + torch.as_tensor(col).to(torch.int64))
+
+    def to_mask(self) -> torch.Tensor:
+        return self.bitset.to_mask().reshape(self.rows, self.cols)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word (SWAR), as int32. ``x`` holds the
+    words in any integer dtype (the bitset's int32 bit patterns, or
+    uint32 values); only the low 32 bits count. The arithmetic runs on
+    int64 masked to 32 bits, since PyTorch lacks uint32 shifts on some
+    builds."""
+    x = torch.as_tensor(x).to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)

@@ -12,11 +12,12 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 
 from raft_tpu_torch.core.errors import LogicError
+from raft_tpu_torch.utils import lockcheck
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -41,6 +42,9 @@ class Resources:
     ``mesh``: the :class:`raft_tpu_torch.parallel.Mesh` that
     :func:`raft_tpu_torch.parallel.init_comms` installs, read back through
     :meth:`get_mesh` (``resource::get_comms``).
+
+    Named resources (:meth:`set_resource`, :meth:`get_resource`) live in a
+    per-handle registry under the handle's lock (``core.resources``).
     """
 
     device: Union[None, str, torch.device] = None
@@ -52,6 +56,8 @@ class Resources:
         self.device = resolve_device(self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
+        self._lock = lockcheck.tracked(threading.Lock(), "core.resources")
+        self._registry: dict = {}
 
     @property
     def stream(self):
@@ -69,6 +75,23 @@ class Resources:
             )
         return self.mesh
 
+    def has_mesh(self) -> bool:
+        return self.mesh is not None
+
+    def set_resource(self, name: str, value: Any) -> None:
+        with self._lock:
+            self._registry[name] = value
+
+    def get_resource(self, name: str, factory=None) -> Any:
+        """The named resource, made once by ``factory`` when missing;
+        ``KeyError`` when it is missing and there is no factory."""
+        with self._lock:
+            if name not in self._registry:
+                if factory is None:
+                    raise KeyError(name)
+                self._registry[name] = factory()
+            return self._registry[name]
+
     def sync(self) -> None:
         """Block until all queued work on this device is complete."""
         if self.device.type == "cuda":
@@ -76,7 +99,7 @@ class Resources:
 
 
 _default_resources: Optional[Resources] = None
-_default_lock = threading.Lock()
+_default_lock = lockcheck.tracked(threading.Lock(), "core.resources_default")
 
 
 def default_resources() -> Resources:

@@ -27,11 +27,13 @@ from raft_tpu_torch import obs
 from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.ops.distance import (
+    EXPANDED,
     DistanceType,
-    SUPPORTED,
+    accum_finalize,
+    accum_step,
+    expanded_epilogue,
     is_min_close,
     resolve_metric,
-    row_norms,
 )
 from raft_tpu_torch.ops.select_k import select_k, worst_value
 
@@ -61,21 +63,23 @@ def check_refine_dataset(dataset, index_size: int, algo: str = "index") -> None:
     )
 
 
-def _exact_rerank(cand_vecs, queries, candidates, valid, *, k: int, metric: DistanceType):
-    """Exact per-candidate distances + top-k. ``cand_vecs`` [nq, n_cand, d]."""
+def _exact_rerank(cand_vecs, queries, candidates, valid, *, k: int, metric: DistanceType,
+                  metric_arg: float = 2.0):
+    """Exact per-candidate distances + top-k. ``cand_vecs`` [nq, n_cand, d].
+    The distances are brute force's for each query against its own
+    candidates: a batched matmul and the same epilogue for the matmul
+    metrics, the same step broadcast per query for the others."""
     qf = queries.to(torch.float32)
     cf = cand_vecs.to(torch.float32)
     select_min = is_min_close(metric)
     worst = worst_value(torch.float32, select_min)
-    dot = torch.bmm(cf, qf[:, :, None])[:, :, 0]  # [nq, n_cand]
-    if metric == DistanceType.InnerProduct:
-        dists = dot
-    elif metric in (DistanceType.L2Expanded, DistanceType.L2SqrtExpanded):
-        d2 = torch.clamp(row_norms(qf)[:, None] + row_norms(cf) - 2.0 * dot, min=0.0)
-        dists = torch.sqrt(d2) if metric == DistanceType.L2SqrtExpanded else d2
+    if metric in EXPANDED:
+        qs, cs = (torch.sqrt(qf), torch.sqrt(cf)) if metric == DistanceType.HellingerExpanded else (qf, cf)
+        dot = torch.bmm(cs, qs[:, :, None])[:, :, 0]  # [nq, n_cand]
+        dists = expanded_epilogue(dot, qf, cf, metric, lambda v: v[:, None], lambda v: v)
     else:
-        denom = torch.sqrt(row_norms(qf))[:, None] * torch.sqrt(row_norms(cf))
-        dists = 1.0 - dot / torch.where(denom == 0.0, torch.ones_like(denom), denom)
+        dists = accum_finalize(accum_step(qf[:, None, :], cf, metric, metric_arg), metric,
+                               metric_arg, qf.shape[1])
     dists = torch.where(valid, dists, torch.full_like(dists, worst))
     vals, pos = select_k(dists, k, select_min=select_min)
     pos = pos.to(torch.int64)
@@ -100,7 +104,7 @@ def refine(
     ``refine.refine.calls``, ``.queries`` and the
     ``.candidates_per_query`` histogram."""
     if not obs.is_enabled():
-        return _refine_dispatch(dataset, queries, candidates, k, metric, query_batch)
+        return _refine_dispatch(dataset, queries, candidates, k, metric, metric_arg, query_batch)
     nq = len(queries)
     shape = np.shape(candidates)
     n_cand = int(shape[1]) if len(shape) == 2 else 0
@@ -108,15 +112,19 @@ def refine(
     obs.inc("refine.refine.queries", float(nq))
     obs.observe("refine.refine.candidates_per_query", float(n_cand))
     with obs.span("refine.refine", k=k, nq=nq, candidates=n_cand) as sp:
-        return sp.sync(_refine_dispatch(dataset, queries, candidates, k, metric, query_batch))
+        return sp.sync(_refine_dispatch(dataset, queries, candidates, k, metric, metric_arg,
+                                        query_batch))
 
 
-def _refine_dispatch(dataset, queries, candidates, k: int, metric, query_batch: int):
+def _refine_dispatch(dataset, queries, candidates, k: int, metric, metric_arg: float,
+                     query_batch: int):
     """The re-rank behind :func:`refine`, in query batches; a host-tier
     ``dataset`` gathers each batch's rows on the host (its candidates come
     to the host for it) and re-ranks them on the queries' device."""
     metric = resolve_metric(metric)
-    expects(metric in SUPPORTED, "refine: metric %s is not ported yet", metric)
+    # JAX fails inside its jit (an AssertionError); the port says so up front
+    expects(metric != DistanceType.Haversine,
+            "refine cannot re-rank under Haversine (not a matmul or accumulation metric)")
     host_tier = is_host_dataset(dataset)
     if host_tier:
         dev = queries.device if isinstance(queries, torch.Tensor) else torch.device("cpu")
@@ -140,7 +148,8 @@ def _refine_dispatch(dataset, queries, candidates, k: int, metric, query_batch: 
             cand_vecs = dataset.gather_to(c.cpu().numpy(), dev)
         else:
             cand_vecs = dataset[torch.where(valid, c, torch.zeros_like(c)).to(torch.int64)]
-        v, i = _exact_rerank(cand_vecs, queries[s : s + query_batch], c, valid, k=k, metric=metric)
+        v, i = _exact_rerank(cand_vecs, queries[s : s + query_batch], c, valid, k=k, metric=metric,
+                             metric_arg=float(metric_arg))
         out_v.append(v)
         out_i.append(i)
     if len(out_v) == 1:

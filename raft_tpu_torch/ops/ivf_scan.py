@@ -46,7 +46,7 @@ import torch
 
 from raft_tpu_torch.core.errors import RaftError, expects
 from raft_tpu_torch.ops.cuda_build import build_library
-from raft_tpu_torch.ops.distance import SUPPORTED, DistanceType
+from raft_tpu_torch.ops.distance import DistanceType
 from raft_tpu_torch.ops.fused_1nn import normalize_rows
 from raft_tpu_torch.ops.guard import check_cuda
 from raft_tpu_torch.ops.select_k import select_k
@@ -61,6 +61,11 @@ MAX_SPLIT = 32
 #: kernel: their partial lists fold 32 at a time, then once more
 #: (``MAX_SHARES`` in the .cu)
 MAX_SHARES = 1024
+
+#: the metrics the kernel scores (its own set: the distance module computes
+#: every metric, this kernel only the four with a per-slot epilogue)
+SUPPORTED = frozenset({DistanceType.L2Expanded, DistanceType.L2SqrtExpanded,
+                       DistanceType.InnerProduct, DistanceType.CosineExpanded})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
 _METRIC_CODE = {

@@ -76,6 +76,30 @@ def select_k(
     return vals, pos.to(torch.int32)
 
 
+def approx_select_k(
+    values,
+    k: int,
+    select_min: bool = True,
+    indices: Optional[torch.Tensor] = None,
+    recall_target: float = 0.95,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`select_k` under the JAX package's approximate contract
+    (``lax.approx_min_k`` / ``approx_max_k``: each true top-k entry
+    returned with probability ``recall_target``, best first).
+
+    The port selects exactly, which meets any ``recall_target``: the
+    TPU's PartialReduce has no counterpart on the card, and an exact
+    selection costs one :func:`select_k`. Off a TPU JAX's op returns the
+    exact top-k values too, with ties resolved in its own order, so ids
+    agree with JAX's only up to the order of equal values."""
+    values = torch.as_tensor(values)
+    expects(values.ndim == 2, "approx_select_k expects [batch, n] values")
+    n = values.shape[1]
+    expects(0 < k <= n, "k=%d out of range for n=%d columns", k, n)
+    expects(0.0 < recall_target <= 1.0, "recall_target must be in (0, 1], got %s", recall_target)
+    return select_k(values, k, select_min=select_min, indices=indices)
+
+
 def merge_parts(
     part_values: torch.Tensor,
     part_indices: torch.Tensor,

@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from raft_tpu_torch.core.errors import RaftError, expects
+from raft_tpu_torch.utils import lockcheck
 
 
 class QueueFull(RaftError):
@@ -92,6 +93,7 @@ class Request:
         return self.deadline_s is not None and now > self.deadline_s
 
 
+@lockcheck.guarded_fields
 class MicroBatcher:
     """Bounded FIFO of requests with flush-on-size / flush-on-age
     batching and deadline-aware admission. ``capacity`` bounds queued
@@ -106,7 +108,7 @@ class MicroBatcher:
         self.max_wait_s = float(max_wait_ms) / 1e3
         self.capacity = int(capacity)
         self._clock = clock if clock is not None else time.monotonic
-        self._lock = threading.RLock()
+        self._lock = lockcheck.tracked(threading.RLock(), "serve.batcher")
         self._queue: "deque[Request]" = deque()
         self._rows = 0
         self._ewma_service_s = 0.0
@@ -227,3 +229,19 @@ class MicroBatcher:
             self._queue = deque()
             self._rows = 0
         return out
+
+    def drain_expired(self, now: Optional[float] = None) -> List[Request]:
+        """Reject only the expired requests, without forming a batch: each
+        one's future fails with :class:`DeadlineExceeded`."""
+        if now is None:
+            now = self.now()
+        with self._lock:
+            expired = self._drop_expired(now)
+        for r in expired:
+            r.future.set_exception(
+                DeadlineExceeded(
+                    f"request {r.req_id} expired in queue "
+                    f"(waited {(now - r.t_arrival) * 1e3:.2f} ms)"
+                )
+            )
+        return expired

@@ -20,6 +20,7 @@ from typing import Callable, List, Sequence, Tuple
 import numpy as np
 
 from raft_tpu_torch.core.errors import expects
+from raft_tpu_torch.utils import lockcheck
 
 
 def bucket_sizes(max_batch: int) -> Tuple[int, ...]:
@@ -98,19 +99,29 @@ class ProgramKey:
 
 @dataclasses.dataclass(frozen=True)
 class CacheStats:
+    """Snapshot of :class:`ProgramCache` counters."""
+
     hits: int
     misses: int
     evictions: int
     size: int
 
+    @property
+    def distinct_programs(self) -> int:
+        """Programs built over the cache's lifetime (its misses)."""
+        return self.misses
 
+
+@lockcheck.guarded_fields
 class ProgramCache:
-    """LRU cache of dispatch closures keyed by :class:`ProgramKey`."""
+    """LRU cache of dispatch closures keyed by :class:`ProgramKey`. Builds
+    run outside the lock (``serve.program_cache``), which guards only the
+    map and its counters."""
 
     def __init__(self, capacity: int = 64):
         expects(capacity >= 1, "capacity must be >= 1, got %d", capacity)
         self.capacity = capacity
-        self._lock = threading.Lock()
+        self._lock = lockcheck.tracked(threading.RLock(), "serve.program_cache")
         self._programs: "OrderedDict[ProgramKey, Callable]" = OrderedDict()
         self._hits = 0
         self._misses = 0
@@ -153,7 +164,16 @@ class ProgramCache:
         with self._lock:
             return len(self._programs)
 
+    def keys(self) -> List[ProgramKey]:
+        with self._lock:
+            return list(self._programs.keys())
+
     def stats(self) -> CacheStats:
         with self._lock:
             return CacheStats(hits=self._hits, misses=self._misses,
                               evictions=self._evictions, size=len(self._programs))
+
+    def clear(self) -> None:
+        """Drop every program; the counters stay."""
+        with self._lock:
+            self._programs.clear()

@@ -193,7 +193,8 @@ class ServingEngine:
                  slow_shard_s: Optional[float] = 0.25,
                  hbm_budget_bytes: Optional[int] = None,
                  host_budget_bytes: Optional[int] = None,
-                 clock: Optional[Callable[[], float]] = None):
+                 clock: Optional[Callable[[], float]] = None,
+                 cache_capacity: int = 64):
         self.max_batch = int(max_batch)
         self.res = ensure_resources(res)
         #: device-memory budget of the placement planner (None: unplanned,
@@ -209,7 +210,7 @@ class ServingEngine:
         self.sharded_placements: Dict[str, object] = {}
         self.batcher = MicroBatcher(max_batch=max_batch, max_wait_ms=max_wait_ms,
                                     capacity=queue_capacity, clock=clock)
-        self.cache = ProgramCache()
+        self.cache = ProgramCache(capacity=cache_capacity)
         #: a health probe slower than this marks the shard unhealthy: serve
         #: degraded coverage now rather than wait out a slow shard (None: no
         #: latency budget)
@@ -792,7 +793,7 @@ class ServingEngine:
             return lambda q: reg.index.search(q, k, mode=t_mode, **kw)
         if reg.algo == "brute_force":
             return lambda q: brute_force.search(reg.index, q, k, query_batch=bucket,
-                                                dataset=reg.dataset, **kw)
+                                                mode=reg.mode, dataset=reg.dataset, **kw)
         if reg.algo == "cagra":
             return lambda q: cagra.search(reg.index, q, k, reg.params, query_batch=bucket,
                                           mode=mode, **kw)

@@ -134,7 +134,7 @@ class TieredIndex:
         # the span measures the enqueue only: the pipeline owns the sync
         with obs.span("tiered.refine", nq=int(queries.shape[0]), k=int(k)):
             return _exact_rerank(slab, queries, candidates, candidates >= 0, k=k,
-                                 metric=self.metric)
+                                 metric=self.metric, metric_arg=self.metric_arg)
 
     def _consume(self, queries, cand, cand_host, k: int):
         """Gather batch rows ``cand_host`` on the host, then enqueue their

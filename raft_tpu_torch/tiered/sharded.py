@@ -302,7 +302,8 @@ class TieredShardedIndex:
             cand = cand if not failed else torch.from_numpy(masked).to(self.device)
             # the span measures the enqueue only: the pipeline owns the sync
             with obs.span("tiered.refine", nq=int(e - s), k=int(k)):
-                out = _exact_rerank(slab, queries[s:e], cand, cand >= 0, k=k, metric=self.metric)
+                out = _exact_rerank(slab, queries[s:e], cand, cand >= 0, k=k, metric=self.metric,
+                                    metric_arg=self.metric_arg)
             return out, dt
 
         def scan(i):

@@ -5,10 +5,13 @@ Tracked locks record the acquisition edges real threads actually take,
 and each edge is asserted against the port's own manifest,
 ``raft_tpu_torch/utils/lock_order.toml``, which declares the locks the
 port creates (``mutable.lock``, ``mutable.compact_mutex``,
-``compactor.state``, ``obs.registry``, ``robust.faults``, and the
-edge-free leaves ``obs.slo``, ``obs.recorder``, ``replica.group``,
-``replica.router``, ``replica.lease``, ``replica.autoscaler``), the edges
-permitted between them and the fields each guards.
+``compactor.state``, ``obs.registry``, ``robust.faults``,
+``core.resources_default``, and the edge-free leaves ``obs.slo``,
+``obs.recorder``, ``replica.group``, ``replica.router``,
+``replica.lease``, ``replica.autoscaler``, ``serve.batcher``,
+``serve.program_cache``, ``core.resources``), the edges permitted between
+them and the fields each guards. It imports only the standard library,
+so ``core/resources.py`` can import it.
 
 Gated by ``RAFT_TPU_LOCKCHECK`` (default **off**), like the
 ``RAFT_TPU_OBS`` / ``RAFT_TPU_FAULTS`` switches. Off is zero-cost:

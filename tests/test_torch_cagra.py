@@ -14,6 +14,7 @@ equal, distances allclose(rtol=1e-5, atol=1e-5) where the ids agree. The
 two packages' f32 products add in different orders, so a near tie may
 order two slots differently."""
 import dataclasses
+import importlib
 import io
 
 import jax.numpy as jnp
@@ -36,11 +37,13 @@ from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.neighbors import cagra as tcagra
 from raft_tpu_torch.neighbors import ivf_pq as tivf
 from raft_tpu_torch.neighbors import nn_descent as tnnd
-from raft_tpu_torch.neighbors import refine as trefine_mod
-from raft_tpu_torch.ops import select_k as tsk
 from raft_tpu_torch.serve import ServingEngine
 from raft_tpu_torch.stats.recall import neighborhood_recall
 from raft_tpu_torch.utils.graph import reverse_edges as treverse_edges
+
+# the packages re-export the functions under the modules' names
+trefine_mod = importlib.import_module("raft_tpu_torch.neighbors.refine")
+tsk = importlib.import_module("raft_tpu_torch.ops.select_k")
 
 N, D, NQ, K = 2000, 16, 45, 10
 CPU = Resources(device="cpu")

@@ -18,10 +18,10 @@ from raft_tpu_torch.cluster import kmeans_balanced as tkb
 from raft_tpu_torch.core.errors import LogicError
 from raft_tpu_torch.ops import distance as tdist
 from raft_tpu_torch.ops import fused_1nn as t1nn
-from raft_tpu_torch.ops import select_k as tsel
 
-# raft_tpu.ops re-exports the select_k function under the module's name
+# both packages' ops re-export the select_k function under the module's name
 jsel = importlib.import_module("raft_tpu.ops.select_k")
+tsel = importlib.import_module("raft_tpu_torch.ops.select_k")
 
 METRICS = ["sqeuclidean", "euclidean", "inner_product", "cosine"]
 
@@ -53,9 +53,14 @@ def test_row_norms_and_enum_match():
 
 
 def test_unported_metric_raises():
+    # every metric is computed now; Precomputed is the one that raises, in
+    # both packages, and Haversine refuses points that are not 2-D
     x = torch.zeros((2, 3))
     with pytest.raises(LogicError):
-        tdist.pairwise_distance(x, x, metric="l1")
+        tdist.pairwise_distance(x, x, metric=tdist.DistanceType.Precomputed)
+    with pytest.raises(LogicError):
+        tdist.pairwise_distance(x, x, metric="haversine")
+    assert tdist.pairwise_distance(x, x, metric="l1").shape == (2, 2)
 
 
 @pytest.mark.parametrize("n,k", [(50, 7), (9000, 10)])  # full sort path and top-k path

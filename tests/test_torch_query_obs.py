@@ -17,8 +17,8 @@ packages' CAGRA beams drift apart at near ties), and JAX's planner
 counters ``plan.*`` (an ``auto`` search counts its decision there; the
 planners' counters are compared in ``tests/test_torch_plan.py``).
 
-One JAX span the port does not record: ``brute_force.search.approx``
-(brute force's approximate mode, not ported); RaBitQ's dense-scan span
+Brute force's approximate mode and its span ``brute_force.search.approx``
+are held in ``tests/test_torch_prims.py``; RaBitQ's dense-scan span
 ``ivf_pq.search.rabitq_xla`` is held in ``tests/test_torch_rabitq_dense_scan.py``. Several JAX spans and every
 ``comms.*`` counter are recorded while a program is traced, once per
 compiled program; the port records them on every call. Each case here

@@ -161,6 +161,24 @@ def test_tiered_search_of_a_bf16_store(family, data, queries):
     assert_equal(got, tflat.search(ti, queries[:MB], K, tsp, query_batch=MB, dataset=Xb))
 
 
+def test_brute_force_tiered_under_lp_reranks_with_its_p(data, queries):
+    """A brute-force index under ``LpUnexpanded`` (p = 3): the re-rank
+    reads the tier's ``metric_arg``, as JAX's does, and returns p = 3
+    distances, the resident search's."""
+    ji = jbf.build(data, metric="lp", metric_arg=3.0)
+    ti = _load(jbf, tbf, ji)
+    q = queries[:MB + 40]
+    jd, jids = JTiered("brute_force", ji, JStore(data), refine_ratio=RATIO, micro_batch=MB,
+                       metric_arg=3.0).search(q, K)
+    tt = TieredIndex("brute_force", ti, HostVectorStore(data), refine_ratio=RATIO,
+                     micro_batch=MB, metric_arg=3.0)
+    td, tids = tt.search(q, K)
+    assert_search_equal(td, tids, jd, jids)
+    assert_equal((td, tids), resident_batches("brute_force", ti, None, q, data))
+    want = (np.abs(q[:, None, :] - data[tids.numpy()]) ** 3).sum(-1) ** (1 / 3)
+    np.testing.assert_allclose(td.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("name", ["nibble", "ivf_flat", "brute_force"])
 def test_short_refine_dataset_fails_before_the_scan(family, data, queries, name):
     algo, _, ti, _, tsp = family(name)

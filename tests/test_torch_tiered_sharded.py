@@ -169,6 +169,19 @@ def test_search_matches_jax_and_the_resident_path(family, data, meshes, algo, ov
     assert_equal(tuple(tr), resident(family, data, meshes, algo, q))
 
 
+def test_the_re_rank_reads_the_tier_s_metric_arg(family, data, meshes, monkeypatch):
+    """``metric_arg`` reaches every micro-batch's re-rank, as JAX's
+    ``_refine_gathered_impl`` call passes it."""
+    from raft_tpu_torch.tiered import sharded as tsharded
+
+    seen, rerank = [], tsharded._exact_rerank
+    monkeypatch.setattr(tsharded, "_exact_rerank",
+                        lambda *a, **kw: seen.append(kw["metric_arg"]) or rerank(*a, **kw))
+    _, tt = tiered_pair(family, data, meshes, "ivf_flat", metric_arg=3.0)
+    tt.search(data[1], K, overlap=False)
+    assert seen == [3.0] * 3  # 150 queries: micro-batches of 64, 64 and 22
+
+
 @pytest.mark.parametrize("merge_mode", ["ring", "fused_ring", "gather"])
 def test_health_mask_matches_jax_and_the_masked_resident_path(family, data, meshes, merge_mode):
     _, q = data
