@@ -1,7 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica,prims [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica,prims,geo,data [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -171,6 +171,17 @@ Phases, in order; any failure exits non-zero:
    whole-matrix argmin, and on integer rows (exact distances, many ties)
    the lowest of the tied ids exactly; ``approx_select_k`` (512 x 65,536, k = 64) and
    ``rbf_kernel`` (4,096 x 4,096 x 128) timed. No hand kernel runs here.
+14. k-means' remaining entry points, the epsilon neighbourhood, ball cover
+   and hnsw at full width (:func:`geo_phase`): ``fit_predict``,
+   ``transform``, ``inertia``, ``find_k`` (2-64), ``fit_minibatch`` and
+   balanced ``fit_predict`` at k = 1,024 on the 1M rows; ``eps_neighbors``
+   of 4,096 queries against the 1M rows held against brute force; ball
+   cover over 1M clustered (lat, lon) points, dense and pruned, ids equal
+   to an exact tiled Haversine search; phase 6's index through an hnswlib
+   file and back, searched on B4 and ``torch.equal`` to ``cagra.search``.
+15. the data and statistics primitives (:func:`data_phase`), plain
+   PyTorch on the card: each against the CPU at a check shape (random ones
+   by their moments), then timed at a user's shape. No hand kernel runs.
 
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
 256, with ties, signed zeros, padding and ``inf``) against its plain
@@ -186,7 +197,7 @@ engine and of the gather merge into host and device time
 kernel's stage clock (``fused_ring_topk_split``).
 
 Each kernel's launch count is zeroed just before its path runs (phases
-3-12) and read just after (phase 13 launches none). ``--quick`` runs phases 1-2 only; ``--profile``
+3-12 and 14) and read just after (phases 13 and 15 launch none). ``--quick`` runs phases 1-2 only; ``--profile``
 adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
 IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 (:func:`run_phases`): ``paths`` times the IVF-Flat search paths per call
@@ -196,7 +207,8 @@ phase 2's B3 checks, ``rabitq`` phase 5, ``b1`` and ``b4`` phase 2's B1
 or B4 checks and then that kernel at the main path's shapes on the 1M
 index, ``mutable`` phase 8, ``robust`` phase 9 (with ``--tree`` only the
 sharded backlog's QPS, :func:`sharded_serve_qps`), ``tiered`` phase 10,
-``multi`` phase 11, ``replica`` phase 12, ``prims`` phase 13;
+``multi`` phase 11, ``replica`` phase 12, ``prims`` phase 13, ``geo``
+phase 14 (after B2, B4 and phase 6's CAGRA build), ``data`` phase 15;
 with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
@@ -3631,9 +3643,362 @@ def sizes_to(sizes, rows: int) -> list:
     return out
 
 
+def geo_points(rng, n: int, groups: int = 4096) -> np.ndarray:
+    """``n`` (lat, lon) radian points in ``groups`` clustered groups (about
+    0.01 rad across, a city's size on the globe)."""
+    lat = rng.uniform(-1.4, 1.4, groups)
+    lon = rng.uniform(-np.pi, np.pi, groups)
+    g = rng.integers(0, groups, n)
+    return np.stack([lat[g] + 0.01 * rng.standard_normal(n),
+                     lon[g] + 0.01 * rng.standard_normal(n)], 1).astype(np.float32)
+
+
+def exact_knn_tiled(points, queries, k: int, metric, block: int = 16384):
+    """Exact kNN of ``queries`` over ``points`` by tiled ``pairwise_distance``,
+    ``select_k`` and a running merge: the reference ball cover is held
+    against (brute force refuses Haversine)."""
+    from raft_tpu_torch.ops.distance import pairwise_distance
+    from raft_tpu_torch.ops.select_k import running_merge, select_k
+
+    nq = queries.shape[0]
+    acc_v = torch.full((nq, k), float("inf"), device=queries.device)
+    acc_i = torch.full((nq, k), -1, dtype=torch.int32, device=queries.device)
+    for s in range(0, points.shape[0], block):
+        d = pairwise_distance(queries, points[s : s + block], metric)
+        ids = (s + torch.arange(d.shape[1], dtype=torch.int32, device=d.device))[None, :].expand_as(d)
+        v, i = select_k(d, k, indices=ids)
+        acc_v, acc_i = running_merge(acc_v, acc_i, v, i)
+    return acc_v, acc_i
+
+
+#: phase 14's sizes: k-means' clusters, the eps queries, ball cover's points
+#: and queries
+GEO_SIZES = dict(k=1024, eps_queries=4096, points=1_000_000, queries=10_000)
+
+
+def geo_phase(card, res, X_card, Qt, gt_i, cg, k: int, seed: int) -> dict:
+    """Phase 14: k-means' remaining entry points, the epsilon neighbourhood,
+    ball cover and hnsw at full width (:func:`run_phases`'s ``geo``), on
+    phase 3's 1M x 128 rows and 10,000 queries and phase 6's CAGRA index.
+    (a) ``kmeans.fit_predict`` at k = 1,024 (20 Lloyd steps), labels equal to
+    ``predict``; (b) ``transform`` and ``inertia`` of the queries; (c)
+    ``find_k`` over 2-64 (ternary search); (d) ``fit_minibatch`` at k =
+    1,024, its inertia against (a)'s; (e) ``kmeans_balanced.fit_predict`` at
+    1,024 lists, labels equal to ``predict``; (f) ``eps_neighbors`` of 4,096
+    queries against the 1M rows (a 4.1 GB adjacency), ``eps`` the median
+    10th-neighbour squared distance: each row of degree <= 64 holds exactly
+    brute force's ids below ``eps`` (ids within 1e-5 relative of ``eps``
+    excepted); (g) ``ball_cover`` over 1M clustered (lat, lon) points with
+    10,000 queries at k = 10, ``n_probes`` 0 and 8, ids equal to an exact
+    tiled Haversine search; (h) hnsw: phase 6's index written to an hnswlib
+    file under ``TMPDIR``, loaded back and searched at ``ef = 128`` on B4,
+    ids ``torch.equal`` to ``cagra.search`` at ``itopk_size = 128`` on the
+    same graph, B4's launches counted, the neighbour table built once."""
+    import tempfile
+
+    from raft_tpu_torch.cluster import kmeans, kmeans_balanced
+    from raft_tpu_torch.neighbors import ball_cover, brute_force, cagra, eps_neighbors, hnsw
+    from raft_tpu_torch.ops import cagra_search
+    from raft_tpu_torch.stats.recall import neighborhood_recall
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) fit_predict at k = 1,024
+    nk = GEO_SIZES["k"]
+    p = kmeans.KMeansParams(n_clusters=nk, max_iter=20, seed=seed)
+    (km, labels), secs = timed_build(lambda: kmeans.fit_predict(X_card, p))
+    if not torch.equal(labels, kmeans.predict(X_card, km.centroids)[0]):
+        raise AssertionError("kmeans.fit_predict labels differ from predict of its centroids")
+    emit(card, phase="geo", metric="kmeans_fit_predict", seconds=secs, k=nk, n_iter=km.n_iter,
+         inertia=km.inertia, rows=X_card.shape[0])
+    # (b) transform and inertia of the queries
+    (T, q_inertia), secs = timed_build(lambda: (kmeans.transform(Qt, km.centroids),
+                                          kmeans.inertia(Qt, km.centroids)))
+    q_lab, q_d = kmeans.predict(Qt, km.centroids)
+    at_label = torch.gather(T, 1, q_lab[:, None].to(torch.int64))[:, 0]
+    if not torch.allclose(at_label, T.min(dim=1).values, rtol=1e-5, atol=1e-3):
+        raise AssertionError("transform's distance at predict's label is not the row minimum")
+    if not torch.allclose(q_inertia, q_d.sum(), rtol=1e-4):
+        raise AssertionError(f"inertia {float(q_inertia)} != sum of predict's {float(q_d.sum())}")
+    emit(card, phase="geo", metric="kmeans_transform_inertia", seconds=secs, shape=list(T.shape),
+         inertia=float(q_inertia))
+    del T
+    # (c) find_k over 2-64: the ternary search, fits counted
+    fits = []
+    real_fit = kmeans.fit
+    kmeans.fit = lambda *a, **kw: fits.append(1) or real_fit(*a, **kw)
+    try:
+        (best_k, fk_inertia, fk_iter), secs = timed_build(lambda: kmeans.find_k(X_card, kmax=64, kmin=2,
+                                                                          seed=seed))
+    finally:
+        kmeans.fit = real_fit
+    if not 2 <= best_k <= 64 or not np.isfinite(fk_inertia):
+        raise AssertionError(f"find_k returned k = {best_k}, inertia {fk_inertia}")
+    emit(card, phase="geo", metric="kmeans_find_k", seconds=secs, best_k=best_k, fits=len(fits),
+         inertia=fk_inertia, n_iter=fk_iter, kmin=2, kmax=64)
+    # (d) fit_minibatch at k = 1,024
+    mb, secs = timed_build(lambda: kmeans.fit_minibatch(X_card, kmeans.KMeansParams(n_clusters=nk,
+                                                                              seed=seed)))
+    if not np.isfinite(mb.inertia) or not torch.equal(mb.labels,
+                                                      kmeans.predict(X_card, mb.centroids)[0]):
+        raise AssertionError("fit_minibatch: non-finite inertia or labels off its centroids")
+    emit(card, phase="geo", metric="kmeans_fit_minibatch", seconds=secs, k=nk, steps=mb.n_iter,
+         inertia=mb.inertia, inertia_over_fit=mb.inertia / km.inertia)
+    # (e) balanced fit_predict at 1,024 lists
+    (bc, blab), secs = timed_build(lambda: kmeans_balanced.fit_predict(
+        X_card, kmeans_balanced.BalancedKMeansParams(n_clusters=nk, seed=seed)))
+    if not torch.equal(blab, kmeans_balanced.predict(X_card, bc)[0]):
+        raise AssertionError("kmeans_balanced.fit_predict labels differ from predict")
+    sizes = torch.bincount(blab.to(torch.int64), minlength=nk)
+    emit(card, phase="geo", metric="kmeans_balanced_fit_predict", seconds=secs, lists=nk,
+         list_size_min=int(sizes.min()), list_size_max=int(sizes.max()))
+    # (f) eps_neighbors: 4,096 queries x 1M rows
+    qe = Qt[: GEO_SIZES["eps_queries"]]
+    bf_d, bf_i = brute_force.knn(X_card, qe, 64, metric="sqeuclidean", res=res)
+    tenth = torch.sort(bf_d[:, 9]).values
+    mid = qe.shape[0] // 2
+    eps = float(0.5 * (tenth[mid - 1] + tenth[mid]))
+    (adj, vd), secs = timed_build(lambda: eps_neighbors(qe, X_card, eps, metric="sqeuclidean",
+                                                  block=512))
+    inside = bf_d < eps
+    near = (bf_d - eps).abs() <= 1e-5 * eps
+    got = torch.gather(adj, 1, bf_i.to(torch.int64))
+    rows = vd <= 64
+    bad = (((got != inside) & ~near).any(dim=1)
+           | ((vd != inside.sum(dim=1)) & ~near.any(dim=1))) & rows
+    if bool(bad.any()):
+        raise AssertionError(f"eps_neighbors: {int(bad.sum())} rows of degree <= 64 differ from "
+                             "brute force")
+    emit(card, phase="geo", metric="eps_neighbors", seconds=secs, queries=qe.shape[0],
+         rows=X_card.shape[0], adjacency_bytes=adj.numel(), eps=eps,
+         rows_checked=int(rows.sum()), ids_near_eps=int(near.sum()),
+         degree_median=float(vd.float().median()), degree_max=int(vd.max()))
+    del adj, got
+    # (g) ball cover: 1M clustered (lat, lon) points, 10,000 queries
+    grng = np.random.default_rng([seed, 14])
+    n_pts = GEO_SIZES["points"]
+    pts = geo_points(grng, n_pts + GEO_SIZES["queries"])
+    P = torch.from_numpy(pts[:n_pts]).cuda()
+    Qg = torch.from_numpy(pts[n_pts:]).cuda()
+    bci, build_s = timed_build(lambda: ball_cover.build(P, seed=seed))
+    (ev, ei), exact_s = timed_build(lambda: exact_knn_tiled(P, Qg, k, "haversine"))
+    bcl = {}
+    for n_probes in (0, 8):
+        waves = []
+        real_wave = ball_cover._scan_wave
+        ball_cover._scan_wave = lambda *a: waves.append(1) or real_wave(*a)
+        try:
+            (bv, bi), secs = timed_build(lambda: ball_cover.knn_query(bci, Qg, k, n_probes=n_probes))
+        finally:
+            ball_cover._scan_wave = real_wave
+        if not torch.equal(bi, ei):
+            raise AssertionError(f"ball_cover n_probes={n_probes}: "
+                                 f"{float((bi != ei).float().mean())} of ids differ from exact")
+        bcl[n_probes] = secs
+        emit(card, phase="geo", metric="ball_cover_knn", n_probes=n_probes, seconds=secs,
+             queries=Qg.shape[0], waves=len(waves), max_abs_err=float((bv - ev).abs().max()))
+    emit(card, phase="geo", metric="ball_cover_build", seconds=build_s, points=P.shape[0],
+         landmarks=bci.n_landmarks, max_group=bci.group_rows.shape[1], exact_search_s=exact_s)
+    del P, Qg, bci
+    # (h) hnsw on phase 6's graph: write, load, search on B4
+    path = os.path.join(tempfile.gettempdir(), f"chip_smoke_hnsw_{os.getpid()}.bin")
+    try:
+        def write():
+            with open(path, "wb") as f:
+                hnsw.serialize_to_hnswlib(cg, f)
+
+        _, write_s = timed_build(write)
+        file_bytes = os.path.getsize(path)
+
+        def load():
+            with open(path, "rb") as f:
+                return hnsw.load_hnswlib(f, device="cuda")
+
+        hidx, load_s = timed_build(load)
+    finally:
+        if os.path.exists(path):
+            os.remove(path)
+    if not (torch.equal(hidx.dataset, cg.dataset) and hidx.entrypoint == cg.size // 2):
+        raise AssertionError("load_hnswlib did not give back the dataset and entry point")
+    empty = int((cg.graph < 0).sum())
+    rows_ids = torch.arange(cg.size, device=cg.graph.device, dtype=torch.int32)[:, None]
+    graph = torch.where(cg.graph < 0, rows_ids, cg.graph)
+    if not torch.equal(hidx.graph, graph):
+        raise AssertionError("load_hnswlib did not give back the graph")
+    ref_index = cg if empty == 0 else cagra.from_graph(cg.dataset, graph, cg.metric, device="cuda")
+    cagra_search.cagra_fused_search.launches = 0
+    (hv, hi), search_s = timed_build(lambda: hnsw.search(hidx, Qt, k, ef=128))
+    table = hidx.to_cagra()._fused_table_cache[1]
+    (hv2, hi2), search2_s = timed_build(lambda: hnsw.search(hidx, Qt, k, ef=128))
+    b4 = cagra_search.cagra_fused_search.launches
+    built_once = hidx.to_cagra()._fused_table_cache[1] is table
+    rv, ri = cagra.search(ref_index, Qt, k, cagra.CagraSearchParams(itopk_size=128))
+    if not (torch.equal(hi, ri) and torch.equal(hv, rv) and torch.equal(hi2, hi)):
+        raise AssertionError("hnsw.search ids differ from cagra.search on the same graph")
+    if b4 <= 0 or not built_once:
+        raise AssertionError(f"hnsw.search launched B4 {b4} times, table built once: {built_once}")
+    out.update(b4_launches=b4)
+    emit(card, phase="geo", metric="hnsw", write_s=write_s, load_s=load_s, file_bytes=file_bytes,
+         search_s=search_s, search_again_s=search2_s, queries=Qt.shape[0], ef=128,
+         recall=neighborhood_recall(hi, gt_i), b4_launches=b4, table_built_once=built_once,
+         empty_graph_slots=empty)
+    del hidx
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(card, phase="geo", metric="phase_s", value=out["phase_s"])
+    return out
+
+
+#: phase 15's check shape (rows, columns), then its timed shapes: the square
+#: matrices' side, R-MAT's edges and scale, the silhouette's and the
+#: trustworthiness' rows
+DATA_CHECK = (2048, 32)
+DATA_SIZES = dict(square=4096, rmat_edges=1 << 24, rmat_scale=20, silhouette=65536,
+                  trustworthiness=16384)
+
+
+def data_phase(card, X_card, seed: int) -> dict:
+    """Phase 15: the data and statistics primitives, plain PyTorch on the
+    card (:func:`run_phases`'s ``data``). Each function runs on the card and
+    on the CPU at a check shape (2,048 x 32): deterministic ones compared
+    directly (rtol 1e-4, atol 1e-4; equal where the result is an integer),
+    random ones (the CUDA and CPU generators differ) by their moments. Then
+    each is timed at a user's shape: ``make_blobs`` 1M x 128, ``rmat`` at
+    scale 20 with 16M edges, ``cov`` and ``minmax`` of the 1M x 128 rows,
+    ``silhouette_score`` at 65,536 rows, ``trustworthiness_score`` at
+    16,384, ``svd``/``qr``/``eig_dc``/``cholesky`` at 4,096^2, ``rsvd`` of the
+    1M x 128 rows at rank 32, ``col_wise_sort`` and ``argmax`` of the 1M x
+    128 rows. No hand kernel runs here."""
+    from raft_tpu_torch import label, linalg, matrix, random, stats
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 15])
+    m, d = DATA_CHECK
+    x = rng.standard_normal((m, d)).astype(np.float32)
+    lab_a = rng.integers(0, 12, m)
+    lab_b = np.where(rng.random(m) < 0.7, lab_a, rng.integers(0, 12, m))
+    emb = x[:, :2] + 0.1 * rng.standard_normal((m, 2)).astype(np.float32)
+    spd = (x[:256].T @ x[:256] / 256 + np.eye(d)).astype(np.float32)
+    keys = rng.integers(0, 40, m)
+
+    def sv(u):
+        return linalg.svd(u)[1]
+
+    checks = {
+        "mean": lambda t: stats.mean(t["x"]),
+        "stddev": lambda t: stats.stddev(t["x"], sample=True),
+        "meanvar": lambda t: torch.stack(stats.meanvar(t["x"], along_rows=False)),
+        "cov": lambda t: stats.cov(t["x"]),
+        "weighted_mean": lambda t: stats.weighted_mean(t["x"], t["w"]),
+        "minmax": lambda t: torch.stack(stats.minmax(t["x"])),
+        "histogram": lambda t: stats.histogram(t["x"], 16, -3.0, 3.0),
+        "contingency_matrix": lambda t: stats.contingency_matrix(t["a"], t["b"]),
+        "adjusted_rand_index": lambda t: stats.adjusted_rand_index(t["a"], t["b"]),
+        "v_measure": lambda t: stats.v_measure(t["a"], t["b"]),
+        "silhouette_score": lambda t: stats.silhouette_score(t["x"], t["a"], chunk=512),
+        "trustworthiness_score": lambda t: stats.trustworthiness_score(t["x"], t["e"], 5, chunk=512),
+        "make_monotonic": lambda t: label.make_monotonic(t["a"] * 3 + 1)[0],
+        "merge_labels": lambda t: label.merge_labels(t["a"], t["k"]),
+        "gemm": lambda t: linalg.gemm(t["x"], t["x"], trans_b=True),
+        "norm": lambda t: linalg.norm(t["x"], sqrt_out=True),
+        "normalize": lambda t: linalg.normalize(t["x"]),
+        "reduce_rows_by_key": lambda t: linalg.reduce_rows_by_key(t["x"], t["k"], 40),
+        "eig_dc": lambda t: linalg.eig_dc(t["s"])[0],
+        "svd": lambda t: sv(t["x"]),
+        "qr": lambda t: (lambda q, r: q @ r)(*linalg.qr(t["x"])),
+        "cholesky": lambda t: linalg.cholesky(t["s"]),
+        "lstsq": lambda t: linalg.lstsq(t["x"], t["x"][:, :3]),
+        "gather": lambda t: matrix.gather(t["x"], t["k"]),
+        "argmax": lambda t: matrix.argmax(t["x"]),
+        "col_wise_sort": lambda t: matrix.col_wise_sort(t["x"]),
+        "sign_flip": lambda t: matrix.sign_flip(t["x"]),
+    }
+    host = dict(x=torch.from_numpy(x), w=torch.from_numpy(np.abs(x[:, 0]) + 0.1),
+                a=torch.from_numpy(lab_a), b=torch.from_numpy(lab_b), e=torch.from_numpy(emb),
+                s=torch.from_numpy(spd), k=torch.from_numpy(keys))
+    dev = {name: v.cuda() for name, v in host.items()}
+    worst = {}
+    for name, fn in checks.items():
+        got, want = fn(dev).cpu(), fn(host)
+        if not got.dtype.is_floating_point:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name}: the card and the CPU differ")
+            worst[name] = 0.0
+            continue
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"{name}: the card and the CPU differ by {err}")
+        worst[name] = err
+    # random: the moments of card and CPU draws
+    n_draw = 1 << 20
+    moments = {}
+    for name, fn in {"uniform": lambda g: random.uniform(g, (n_draw,), -1.0, 3.0),
+                     "normal": lambda g: random.normal(g, (n_draw,), 2.0, 0.5),
+                     "exponential": lambda g: random.exponential(g, (n_draw,), 4.0),
+                     "gumbel": lambda g: random.gumbel(g, (n_draw,)),
+                     "blob_noise": lambda g: (lambda X, lab, c: (X - c[lab.long()]).reshape(-1))(
+                         *random.make_blobs(g, n_draw // 32, 32, 8, cluster_std=0.7)),
+                     "rmat_src": lambda g: random.rmat(g, n_draw, 12, 10)[0].float()}.items():
+        a = fn(random.as_key(seed, device=X_card.device)).double().cpu()
+        b = fn(random.as_key(seed, device="cpu")).double()
+        se = float(torch.sqrt(a.var() / a.numel() + b.var() / b.numel()))
+        diff = float((a.mean() - b.mean()).abs())
+        if diff > 5 * se or abs(float(a.std() / b.std()) - 1.0) > 0.01:
+            raise AssertionError(f"{name}: card draws' moments differ from the CPU's")
+        moments[name] = dict(mean_diff_in_se=diff / se, std_ratio=float(a.std() / b.std()))
+    emit(card, phase="data", metric="card_vs_cpu", max_abs_err=worst, random_moments=moments,
+         shape=[m, d])
+    # timed at the users' shapes
+    g = random.as_key(seed, device=X_card.device)
+    n_rows = X_card.shape[0]
+    side, n_sil, n_tw = DATA_SIZES["square"], DATA_SIZES["silhouette"], DATA_SIZES["trustworthiness"]
+    n_edges, scale = DATA_SIZES["rmat_edges"], DATA_SIZES["rmat_scale"]
+    lab64 = matrix.argmin(torch.cdist(X_card[:n_sil], X_card[:64]))
+    sq = torch.randn((side, side), generator=g, device=g.device)
+    sq_spd = sq @ sq.T / side + torch.eye(side, device=g.device)
+    sq_sym = 0.5 * (sq + sq.T)
+    timings = {
+        "make_blobs": (lambda: random.make_blobs(g, n_rows, 128, 4096), 3),
+        "rmat": (lambda: random.rmat(g, n_edges, scale, scale), 3),
+        "cov": (lambda: stats.cov(X_card), 5),
+        "minmax": (lambda: stats.minmax(X_card), 5),
+        "silhouette": (lambda: stats.silhouette_score(X_card[:n_sil], lab64), 1),
+        "trustworthiness": (lambda: stats.trustworthiness_score(
+            X_card[:n_tw], X_card[:n_tw, :2], 5), 1),
+        "svd_square": (lambda: linalg.svd(sq), 1),
+        "qr_square": (lambda: linalg.qr(sq), 1),
+        "eig_dc_square": (lambda: linalg.eig_dc(sq_sym), 1),
+        "cholesky_square": (lambda: linalg.cholesky(sq_spd), 3),
+        "rsvd_rank32": (lambda: linalg.rsvd(X_card, 32, key=g), 3),
+        "col_wise_sort": (lambda: matrix.col_wise_sort(X_card), 5),
+        "argmax": (lambda: matrix.argmax(X_card), 5),
+    }
+    ms = {name: cuda_ms(fn, reps) for name, (fn, reps) in timings.items()}
+    # the timed results are right too
+    _, s_r, _ = linalg.rsvd(X_card, 32, key=g)
+    s_full = torch.sqrt(torch.linalg.eigvalsh(X_card.double().T @ X_card.double()).flip(0))
+    rel = ((s_r.double() - s_full[:32]) / s_full[:32]).abs()
+    # the rows span 16 latent directions plus isotropic noise: the 16 leading
+    # values are held; the noise floor's flat tail is only reported
+    rsvd_err, rsvd_tail = float(rel[:16].max()), float(rel[16:].max())
+    w, v = linalg.eig_dc(sq_sym)
+    eig_res = float((sq_sym @ v - v * w[None, :]).abs().max())
+    src, dst = random.rmat(g, n_edges, scale, scale)
+    if not (0 <= int(src.min()) and int(src.max()) < 1 << scale and int(dst.max()) < 1 << scale):
+        raise AssertionError("rmat ids out of range")
+    if rsvd_err > 1e-3 or eig_res > 1e-2:
+        raise AssertionError(f"rsvd relative error {rsvd_err}, eig_dc residual {eig_res}")
+    out = {"ms": ms, "rsvd_rel_err": rsvd_err, "eig_dc_residual": eig_res}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(card, phase="data", metric="ms", value=ms, rsvd_top16_rel_err=rsvd_err,
+         rsvd_17_to_32_rel_err=rsvd_tail,
+         eig_dc_residual=eig_res, rows=n_rows, **DATA_SIZES)
+    emit(card, phase="data", metric="phase_s", value=out["phase_s"])
+    return out
+
+
 #: the parts ``--phases`` runs alone
 PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable", "robust",
-               "tiered", "multi", "replica", "prims")
+               "tiered", "multi", "replica", "prims", "geo", "data")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
@@ -3658,8 +4023,10 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
     (:func:`multi_phase`) on phase 3's data and the indexes of phases 4, 5
     and 6; ``replica``: phase 12 (:func:`replica_phase`) on phase 3's data
     and IVF-Flat index (its churn rows follow phase 3's draws, not phase
-    8's); ``prims``: phase 13 (:func:`prims_phase`) on phase 3's data. Each
-    builds the kernels it launches first. ``tree`` is the tree whose
+    8's); ``prims``: phase 13 (:func:`prims_phase`) on phase 3's data;
+    ``geo``: phase 14 (:func:`geo_phase`) on phase 3's data and the CAGRA
+    index built as phase 6 builds it; ``data``: phase 15 (:func:`data_phase`)
+    on phase 3's rows. Each builds the kernels it launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
@@ -3867,6 +4234,35 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
         _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
         prims_phase(card, res, torch.from_numpy(X).cuda(), torch.from_numpy(Q).cuda(), gt_i, 10,
                     seed)
+    if "geo" in parts:
+        from raft_tpu_torch.neighbors import cagra
+        from raft_tpu_torch.ops import cagra_search, pq_scan
+
+        mods = {"fused_pq_topk": pq_scan, "cagra_fused_search": cagra_search}
+        with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
+            builds = {name: ex.submit(mod.build_kernel, True) for name, mod in mods.items()}
+            for name, f in builds.items():
+                emit(card, phase="build", kernel=name, build_s=f.result()[1])
+        res = Resources(device="cuda", seed=seed)
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
+        gen = Clustered(rng, 128, 4096)
+        X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
+        X_card = torch.from_numpy(X).cuda()
+        pq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024), res=res)
+        cg = cagra.build(X_card, cagra.CagraIndexParams(intermediate_graph_degree=32,
+                                                        graph_degree=16, build_algo="ivf_pq"),
+                         res=res, pq_index=pq_index)
+        del pq_index
+        geo_phase(card, res, X_card, torch.from_numpy(Q).cuda(), gt_i, cg, 10, seed)
+    if "data" in parts:
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
+        X = Clustered(rng, 128, 4096).sample(1_000_000)
+        data_phase(card, torch.from_numpy(X).cuda(), seed)
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -3890,6 +4286,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_run = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     tree = os.path.abspath(args.tree or here)
     sys.path.insert(0, tree)
@@ -4424,6 +4821,12 @@ def main() -> int:
     # ---- phase 13: the search path's primitives --------------------------------
     prims_phase(card, res, X_card, Qt, gt_i, k, args.seed)
 
+    # ---- phase 14: k-means' entry points, eps, ball cover and hnsw on B4 ---------
+    geo = geo_phase(card, res, X_card, Qt, gt_i, cg, k, args.seed)
+
+    # ---- phase 15: the data and statistics primitives ---------------------------
+    data_phase(card, X_card, args.seed)
+
     rows = []
     for name, src, line, launches, t in (
             ("fused_list_topk", "ivf_scan.cu", "raft_tpu/ops/pallas/ivf_scan.py:321", flat_launches, b1),
@@ -4454,8 +4857,10 @@ def main() -> int:
             rows[-1]["folds_inside_rings"] = folds
         if name == "fused_ring_topk":  # phase 9's backlog with shard 2 down
             rows[-1]["launches_degraded"] = robust["b6_launches"]
-        if name == "cagra_fused_search":
-            rows[-1].update(per_step_us=t["per_step_us"], chain_floor_ms=t.get("chain_floor_ms"))
+        if name == "cagra_fused_search":  # phase 14's hnsw searches launch B4 too
+            rows[-1].update(per_step_us=t["per_step_us"], chain_floor_ms=t.get("chain_floor_ms"),
+                            launches_hnsw=geo["b4_launches"])
+    emit(card, phase="run", metric="total_s", value=time.perf_counter() - t_run)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

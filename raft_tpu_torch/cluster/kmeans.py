@@ -14,8 +14,14 @@ seeded with ``params.seed``, so ``random``/``kmeans++`` inits differ from
 per fit and reused by every iteration, rows assigned in blocks. The JAX
 package also skips center tiles by a norm bound; that skip never changes
 a label, and a data-dependent skip costs a host round trip per tile on a
-GPU, so the port computes every tile. ``find_k`` and ``fit_minibatch``
-are not ported yet.
+GPU, so the port computes every tile.
+
+``find_k`` is JAX's search (exhaustive over a range of 24 or less, else
+ternary, each fit cached). ``fit_minibatch`` is JAX's update (the
+running-count learning rate, ``n_epochs * (n // batch_samples)`` steps, a
+final full :func:`predict`); its batches and its k-means++ init draw from
+the fit's ``torch.Generator`` where JAX splits Threefry keys, so its
+centers differ from JAX's by design.
 """
 from __future__ import annotations
 
@@ -28,7 +34,8 @@ import torch
 from raft_tpu_torch import obs
 from raft_tpu_torch.core.errors import expects
 from raft_tpu_torch.core.resources import Resources
-from raft_tpu_torch.ops.distance import DistanceType, is_min_close, resolve_metric, row_norms
+from raft_tpu_torch.ops.distance import (DistanceType, is_min_close, pairwise_distance,
+                                         resolve_metric, row_norms)
 from raft_tpu_torch.ops.fused_1nn import min_cluster_and_distance, normalize_rows
 
 
@@ -268,3 +275,115 @@ def fit(
 def predict(X, centroids, metric=DistanceType.L2Expanded) -> Tuple[torch.Tensor, torch.Tensor]:
     """Assign samples to nearest centroids. Returns ``(labels, distances)``."""
     return min_cluster_and_distance(torch.as_tensor(X).to(torch.float32), centroids, metric=metric)
+
+
+def fit_predict(X, params: Optional[KMeansParams] = None, **kwargs) -> Tuple[KMeansOutput, torch.Tensor]:
+    """:func:`fit`, then the labels of its final E step."""
+    out = fit(X, params, **kwargs)
+    return out, out.labels
+
+
+def transform(X, centroids, metric=DistanceType.L2Expanded) -> torch.Tensor:
+    """Distances to every centroid (``kmeans::transform``): ``[n, k]``."""
+    return pairwise_distance(torch.as_tensor(X).to(torch.float32), centroids, metric=metric)
+
+
+def inertia(X, centroids, metric=DistanceType.L2Expanded) -> torch.Tensor:
+    """Sum of each sample's distance to its nearest centroid (a 0-dim
+    tensor on the data's device)."""
+    _, dists = predict(X, centroids, metric)
+    return torch.sum(dists)
+
+
+def cluster_dispersion(centroids, cluster_sizes) -> torch.Tensor:
+    """Cluster dispersion (``stats/dispersion.cuh:85``): sqrt of the
+    size-weighted squared distances between the centroids and their
+    size-weighted mean."""
+    c = torch.as_tensor(centroids).to(torch.float32)
+    w = torch.as_tensor(cluster_sizes).to(device=c.device, dtype=torch.float32)
+    total = torch.clamp(torch.sum(w), min=1.0)
+    g = torch.sum(c * w[:, None], dim=0) / total
+    return torch.sqrt(torch.sum(w * torch.sum((c - g) ** 2, dim=1)))
+
+
+def find_k(X, kmax: int, kmin: int = 1, max_iter: int = 100, tol: float = 1e-2,
+           seed: int = 0) -> Tuple[int, float, int]:
+    """Auto-select k (``kmeans::find_k``): the k in ``[max(2, kmin), kmax]``
+    maximizing ``(n - k) / (k - 1) * dispersion(k) / inertia(k)``, by
+    exhaustive search over a range of 24 or less and a ternary search
+    above that, each k fitted once (cached). Returns ``(best_k, inertia,
+    n_iter)`` of the best fit."""
+    X = torch.as_tensor(X).to(torch.float32)
+    n = X.shape[0]
+    expects(1 <= kmin <= kmax <= n, "need 1 <= kmin <= kmax <= n")
+    cache = {}
+
+    def objective(k):
+        if k not in cache:
+            out = fit(X, KMeansParams(n_clusters=k, max_iter=max_iter, tol=tol, seed=seed))
+            sizes = torch.bincount(out.labels.to(torch.int64), minlength=k)
+            disp = float(cluster_dispersion(out.centroids, sizes))
+            inert = max(out.inertia, 1e-20)
+            cache[k] = ((n - k) / max(k - 1, 1) * disp / inert, out)
+        return cache[k]
+
+    def best_of(ks):
+        best = max(ks, key=lambda k: objective(k)[0])
+        out = objective(best)[1]
+        return best, out.inertia, out.n_iter
+
+    left, right = max(2, kmin), kmax
+    if left >= right:
+        return best_of([right])
+    if right - left <= 24:
+        # small range: every k (the slope-sign bisection walks the wrong way
+        # when the objective is monotone, e.g. the true k at kmin)
+        return best_of(range(left, right + 1))
+    while right - left > 2:
+        m1 = left + (right - left) // 3
+        m2 = right - (right - left) // 3
+        if objective(m1)[0] < objective(m2)[0]:
+            left = m1 + 1
+        else:
+            right = m2 - 1
+    return best_of(range(left, right + 1))
+
+
+def fit_minibatch(X, params: Optional[KMeansParams] = None, n_epochs: int = 10,
+                  res: Optional[Resources] = None, **kwargs) -> KMeansOutput:
+    """Mini-batch Lloyd: each step assigns ``batch_samples`` rows drawn
+    with replacement and moves each center by the running-count learning
+    rate (sklearn's ``MiniBatchKMeans`` update), ``max(1, n_epochs * (n //
+    batch_samples))`` steps from a k-means++ init on a ``batch_samples``
+    subsample; then one full :func:`predict`. Draws come from a
+    ``torch.Generator`` seeded with ``params.seed``. ``n_iter`` is the
+    step count."""
+    if params is None:
+        params = KMeansParams(**kwargs)
+    metric = resolve_metric(params.metric)
+    X = torch.as_tensor(X).to(torch.float32)
+    if res is not None:
+        X = X.to(res.device)
+    n, _ = X.shape
+    k = params.n_clusters
+    b = int(min(params.batch_samples, n))
+    expects(0 < k <= b, "n_clusters=%d must be <= batch_samples=%d", k, b)
+    gen = make_generator(params.seed, X.device)
+    init_idx = torch.randperm(n, generator=gen, device=X.device)[:b]
+    centers = kmeans_plus_plus(gen, X[init_idx], k)
+    steps = max(1, n_epochs * (n // b))
+    counts = torch.zeros((k,), dtype=torch.float32, device=X.device)
+    ones = torch.ones((b,), dtype=torch.float32, device=X.device)
+    for _ in range(steps):
+        batch = X[torch.randint(0, n, (b,), generator=gen, device=X.device)]
+        labels, _ = min_cluster_and_distance(batch, centers, metric=metric)
+        bsum = segment_sum(batch, labels, k)
+        bcnt = segment_sum(ones, labels, k)
+        counts = counts + bcnt
+        lr = torch.where(counts > 0, bcnt / torch.clamp(counts, min=1.0), torch.zeros_like(counts))
+        bmean = bsum / torch.clamp(bcnt[:, None], min=1e-9)
+        centers = torch.where((bcnt > 0)[:, None], centers + lr[:, None] * (bmean - centers),
+                              centers)
+    labels, dists = min_cluster_and_distance(X, centers, metric=metric)
+    return KMeansOutput(centroids=centers, labels=labels, inertia=float(torch.sum(dists)),
+                        n_iter=steps)

@@ -198,3 +198,12 @@ def fit(
 def predict(X, centroids, metric=DistanceType.L2Expanded) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest-centroid assignment ``(labels, distances)``."""
     return min_cluster_and_distance(torch.as_tensor(X).to(torch.float32), centroids, metric=metric)
+
+
+def fit_predict(X, params: Optional[BalancedKMeansParams] = None, **kwargs):
+    """:func:`fit`, then :func:`predict` on the returned centers:
+    ``(centers, labels)``."""
+    centers = fit(X, params, **kwargs)
+    metric = params.metric if params is not None else kwargs.get("metric", DistanceType.L2Expanded)
+    labels, _ = predict(torch.as_tensor(X).to(centers.device), centers, metric=metric)
+    return centers, labels

@@ -33,20 +33,17 @@ DIM = 8
 #: names of JAX's package ``__all__`` the port leaves out, each with the
 #: ROADMAP queue item that ports it (no stubs: they do not resolve)
 UNPORTED = {
-    "core": {"as_array": "A7c", "check_dtype_one_of": "A7c", "check_matching_dims": "A7c",
-             "interruptible": "A7c", "logging": "A7c", "tracing": "A7c"},
+    "core": {},
     "ops": {},
     "cluster": {"single_linkage": "A7d", "SingleLinkageOutput": "A7d"},
-    "neighbors": {"ball_cover": "A7b", "eps_neighbors": "A7b", "hnsw": "A7b"},
-    "stats": {name: "A7c" for name in (
-        "CriterionType", "accuracy", "adjusted_rand_index", "completeness_score",
-        "contingency_matrix", "cov", "dispersion", "entropy", "histogram", "homogeneity_score",
-        "information_criterion", "kl_divergence", "mean", "mean_add", "mean_center", "meanvar",
-        "minmax", "mutual_info_score", "r2_score", "rand_index", "regression_metrics",
-        "silhouette_score", "stddev", "sum_", "trustworthiness_score", "v_measure",
-        "weighted_mean")},
+    "neighbors": {},
+    "stats": {},
     "utils": {},
     "serve": {},
+    "random": {},
+    "linalg": {},
+    "matrix": {},
+    "label": {},
     "": {},
 }
 
@@ -75,7 +72,8 @@ def test_import_stays_cheap():
         "import sys\n"
         "import raft_tpu_torch, raft_tpu_torch.core, raft_tpu_torch.ops, raft_tpu_torch.cluster\n"
         "import raft_tpu_torch.neighbors, raft_tpu_torch.stats, raft_tpu_torch.utils\n"
-        "import raft_tpu_torch.serve\n"
+        "import raft_tpu_torch.serve, raft_tpu_torch.random, raft_tpu_torch.linalg\n"
+        "import raft_tpu_torch.matrix, raft_tpu_torch.label\n"
         "maps = open('/proc/self/maps').read()\n"
         "print(raft_tpu_torch.Resources.__name__, 'triton' in sys.modules, 'jax' in sys.modules,\n"
         "      'raft_tpu' in sys.modules, 'raft_tpu_torch/_build' in maps)\n"

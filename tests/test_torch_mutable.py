@@ -914,25 +914,30 @@ def test_maintenance_tick_drives_the_compactor_and_shutdown_stops_it(rng, obs_re
     eng = ServingEngine(max_batch=8, max_wait_ms=0.0, res=mut.res, maintenance_interval_ms=0.0)
     eng.register_mutable("live", mut, policy=CompactionPolicy(delta_rows=4))
     comp = eng._reg("live").compactor
-    assert comp.running
-    mut.insert(_rows(rng, 5))
-    q = _rows(rng, 2)
-    gens = set()
-    deadline = time.monotonic() + 30.0
-    while mut.generation < 2 and time.monotonic() < deadline:
+    try:
+        assert comp.running
+        q = _rows(rng, 2)
+        # one batch served before the policy can trip, so generation 1 is seen for certain
         fut = eng.submit("live", q, k=3)
-        eng.step(force=True)  # ticks maintenance first
+        eng.run_until_idle()
+        gens = {fut.result().generation}
+        mut.insert(_rows(rng, 5))
+        deadline = time.monotonic() + 30.0
+        while mut.generation < 2 and time.monotonic() < deadline:
+            fut = eng.submit("live", q, k=3)
+            eng.step(force=True)  # ticks maintenance first
+            gens.add(fut.result().generation)
+            time.sleep(0.005)
+        eng.maintenance_tick()
+        fut = eng.submit("live", q, k=3)
+        eng.run_until_idle()
         gens.add(fut.result().generation)
-        time.sleep(0.005)
-    eng.maintenance_tick()
-    fut = eng.submit("live", q, k=3)
-    eng.run_until_idle()
-    gens.add(fut.result().generation)
-    assert mut.generation == 2 and comp.completed == 1 and gens == {1, 2}
-    counters = obs_reg.as_dict()["counters"]
-    assert counters['serve.generation_flips{index_id="live"}'] == 1.0
-    assert obs_reg.as_dict()["gauges"]['serve.generation{index_id="live"}'] == 2.0
-    eng.shutdown()
+        assert mut.generation == 2 and comp.completed == 1 and gens == {1, 2}
+        counters = obs_reg.as_dict()["counters"]
+        assert counters['serve.generation_flips{index_id="live"}'] == 1.0
+        assert obs_reg.as_dict()["gauges"]['serve.generation{index_id="live"}'] == 2.0
+    finally:
+        eng.shutdown()
     assert not comp.running
 
 
