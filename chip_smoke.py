@@ -1,7 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica,prims,geo,data [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica,prims,geo,data,graph [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -182,6 +182,12 @@ Phases, in order; any failure exits non-zero:
 15. the data and statistics primitives (:func:`data_phase`), plain
    PyTorch on the card: each against the CPU at a check shape (random ones
    by their moments), then timed at a user's shape. No hand kernel runs.
+16. sparse containers and linalg, sparse distances and kNN (native CSR at
+   2^20 columns and densified), the kNN graph, MST, Lanczos, single
+   linkage, spectral partitioning and the LAP solver (:func:`graph_phase`):
+   each on the card against the CPU at a check shape, then timed at a
+   user's shape. Plain PyTorch (the LAP a C solver on the host); no hand
+   kernel runs.
 
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
 256, with ties, signed zeros, padding and ``inf``) against its plain
@@ -197,7 +203,7 @@ engine and of the gather merge into host and device time
 kernel's stage clock (``fused_ring_topk_split``).
 
 Each kernel's launch count is zeroed just before its path runs (phases
-3-12 and 14) and read just after (phases 13 and 15 launch none). ``--quick`` runs phases 1-2 only; ``--profile``
+3-12 and 14) and read just after (phases 13, 15 and 16 launch none). ``--quick`` runs phases 1-2 only; ``--profile``
 adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
 IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 (:func:`run_phases`): ``paths`` times the IVF-Flat search paths per call
@@ -208,7 +214,8 @@ or B4 checks and then that kernel at the main path's shapes on the 1M
 index, ``mutable`` phase 8, ``robust`` phase 9 (with ``--tree`` only the
 sharded backlog's QPS, :func:`sharded_serve_qps`), ``tiered`` phase 10,
 ``multi`` phase 11, ``replica`` phase 12, ``prims`` phase 13, ``geo``
-phase 14 (after B2, B4 and phase 6's CAGRA build), ``data`` phase 15;
+phase 14 (after B2, B4 and phase 6's CAGRA build), ``data`` phase 15,
+``graph`` phase 16;
 with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
@@ -3996,9 +4003,304 @@ def data_phase(card, X_card, seed: int) -> dict:
     return out
 
 
+#: phase 16's check shapes: the linalg matrix (rows, columns, density), the
+#: native and densify distance inputs (rows, columns), the rows the CPU
+#: computes of each distance matrix, the MST's and single linkage's points,
+#: the Lanczos graph's communities and size, the LAP's n
+GRAPH_CHECK = dict(linalg=(2048, 4096, 0.02), native=(512, 1 << 20), densify=(512, 4096),
+                   cpu_rows=64, points=4096, communities=(8, 512), lap=256)
+#: phase 16's users' shapes: the sparse corpus (rows, columns: scikit-learn's
+#: HashingVectorizer default width, mean nnz a row), its queries, the copy's
+#: width and the queries held on it, the blobs (rows, dims, blobs) behind
+#: the kNN graph (k = c), the spectral clusters, the LAP's n
+GRAPH_SIZES = dict(rows=100_000, width=1 << 20, nnz=64, queries=1024, copy_width=16384,
+                   copy_queries=256, blobs=(100_000, 32, 8), c=15, clusters=8, lap=1024)
+
+
+def random_csr(rng, rows: int, width: int, mean_nnz: int, device):
+    """A CSR matrix of ``rows`` rows, each about ``mean_nnz`` distinct sorted
+    columns (the count Poisson from ``rng``, at least 1, the columns uniform)
+    with values in [0.1, 1.1), like TF-IDF rows; built on the host."""
+    from raft_tpu_torch import sparse
+
+    counts = np.maximum(rng.poisson(mean_nnz, rows), 1)
+    row = np.repeat(np.arange(rows, dtype=np.int64), counts)
+    key = np.unique(row * width + rng.integers(0, width, row.size))  # sorted, distinct
+    indptr = np.zeros(rows + 1, np.int64)
+    indptr[1:] = np.cumsum(np.bincount(key // width, minlength=rows))
+    vals = (0.1 + rng.random(key.size)).astype(np.float32)
+    return sparse.CSR(torch.from_numpy(indptr.astype(np.int32)).to(device),
+                      torch.from_numpy((key % width).astype(np.int32)).to(device),
+                      torch.from_numpy(vals).to(device), (rows, width))
+
+
+def sparse_to(m, device):
+    """A COO or CSR with its tensors on ``device``."""
+    return dataclasses.replace(m, **{f.name: getattr(m, f.name).to(device)
+                                     for f in dataclasses.fields(m) if f.name != "shape"})
+
+
+def csr_head(a, rows: int):
+    """The CSR of ``a``'s first ``rows`` rows."""
+    end = int(a.indptr[rows])
+    return type(a)(a.indptr[: rows + 1], a.indices[:end], a.vals[:end], (rows, a.shape[1]))
+
+
+def held_card_vs_cpu(what: str, got, want, tol: float = 1e-4) -> float:
+    """Integers and structure equal, floats allclose at rtol/atol ``tol``:
+    the largest absolute difference."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = g.cpu() if isinstance(g, torch.Tensor) else torch.as_tensor(g)
+        w = w.cpu() if isinstance(w, torch.Tensor) else torch.as_tensor(w)
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}: shape {tuple(g.shape)} on the card, {tuple(w.shape)} on the CPU")
+        if not g.dtype.is_floating_point:
+            if not torch.equal(g, w):
+                raise AssertionError(f"{what}: the card and the CPU differ")
+            continue
+        both_inf = torch.isinf(g) & torch.isinf(w) & (torch.sign(g) == torch.sign(w))
+        diff = torch.where(both_inf, torch.zeros_like(g), (g.double() - w.double()).abs())
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        if not torch.allclose(torch.where(both_inf, 0.0, g), torch.where(both_inf, 0.0, w),
+                              rtol=tol, atol=tol):
+            raise AssertionError(f"{what}: the card and the CPU differ by {worst}")
+    return worst
+
+
+def same_knn_but_ties(what: str, got, want, rtol: float = 1e-5) -> float:
+    """Values allclose at ``rtol``; where the ids differ the two values lie
+    within ``rtol`` of each other (a tie). Returns the share of equal ids."""
+    gv, gi = (t.cpu() for t in got)
+    wv, wi = (t.cpu() for t in want)
+    tol = rtol * torch.clamp(wv.abs(), min=1.0)
+    if not ((gv - wv).abs() <= tol).all():
+        raise AssertionError(f"{what}: values differ by {float((gv - wv).abs().max())}")
+    differ = gi != wi
+    if ((gv - wv).abs() > tol)[differ].any():
+        raise AssertionError(f"{what}: an id differs where the values do not tie")
+    return 1.0 - float(differ.to(torch.float32).mean())
+
+
+def integer_blobs(rng, n: int, d: int, blobs: int) -> np.ndarray:
+    """Integer points about integer centres: every distance the kNN graph
+    takes is exact in f32, so the card and the CPU build one tree."""
+    centers = rng.integers(-60, 61, (blobs, d))
+    return (centers[rng.integers(0, blobs, n)] + rng.integers(-3, 4, (n, d))).astype(np.float32)
+
+
+def community_laplacian(rng, communities: int, size: int):
+    """The COO adjacency of ``communities`` random graphs of ``size`` nodes
+    (edge probability 0.05 inside, 0.001 across), and a function of a device
+    that gives its Laplacian's matvec there. The smallest eigenvalues (0,
+    then ``communities - 1`` small ones) stand apart from the rest."""
+    from raft_tpu_torch import sparse
+
+    n = communities * size
+    block = np.arange(n) // size
+    p = np.where(block[:, None] == block[None, :], 0.05, 0.001)
+    a = np.triu(rng.random((n, n)) < p, 1)
+    r, c = np.nonzero(a | a.T)
+    coo = sparse.COO(torch.from_numpy(r.astype(np.int32)), torch.from_numpy(c.astype(np.int32)),
+                     torch.ones(r.size), (n, n))
+
+    def matvec_on(device):
+        g = sparse_to(coo, device)
+        csr = sparse.coo_to_csr(g)
+        deg = sparse.linalg.degree(g).to(torch.float32)
+        return lambda v: deg * v - sparse.linalg.spmv(csr, v)
+
+    return coo, matvec_on
+
+
+def graph_phase(card, seed: int) -> dict:
+    """Phase 16: sparse containers and linalg, sparse distances and kNN, the
+    kNN graph, MST, Lanczos, single linkage, spectral partitioning and the
+    LAP solver, plain PyTorch on the card (the LAP a C solver on the host;
+    :func:`run_phases`'s ``graph``). No hand kernel runs here.
+
+    (a) The card against the CPU at check shapes (:data:`GRAPH_CHECK`):
+    every ``sparse.linalg`` function on a 2,048 x 4,096 CSR at 2 % density
+    (floats within rtol/atol 1e-4, integers and structure equal);
+    ``pairwise_distance_sparse`` under every native metric at 512 x 2^20
+    columns and under every computable metric but Haversine in the densify
+    mode at 512 x 4,096 (the CPU computes the first 64 rows; rtol/atol
+    1e-4); ``mst`` of one host-built COO (the kNN graph of 4,096 points;
+    edges equal); ``single_linkage`` of 4,096 x 16 integer points (labels and
+    children equal, deltas within 1e-4); ``lanczos`` on a community graph's
+    Laplacian (the 8 smallest eigenvalues within rtol 1e-3, atol 1e-3 for
+    the zero mode: the CUDA and CPU generators differ); ``lap_solve`` at
+    n = 256 equal to the plain numpy solver.
+
+    (b) Timed at users' shapes (:data:`GRAPH_SIZES`): ``knn_sparse`` k = 10
+    under ``CosineExpanded`` and ``L1``, native over 100,000 rows x 2^20
+    columns (about 64 nnz a row) for 1,024 queries, and both modes over a
+    16,384-column copy for 256 queries (the densify path's accumulation
+    metrics take about 80 ms a 1,024-row block there), where the native ids
+    equal the densify path's but for ties within 1e-5; ``spmm`` of the kNN graph's
+    CSR by a 100,000 x 32 block; ``knn_graph``, ``mst`` and
+    ``single_linkage`` of 100,000 x 32 blobs at c = 15 (n - 1 merges, the
+    last of size n; the ARI against the blob labels reported); ``partition``
+    and ``modularity_maximization`` at 8 clusters with ``analyze_partition``
+    and ``modularity`` on that graph; ``lap_solve`` at n = 1,024."""
+    from raft_tpu_torch import random as trandom
+    from raft_tpu_torch import sparse, spectral, stats
+    from raft_tpu_torch.cluster import single_linkage
+    from raft_tpu_torch.ops.distance import DistanceType
+    from raft_tpu_torch.solver import lap
+
+    t_phase = time.perf_counter()
+    sl = sparse.linalg
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    rng = np.random.default_rng([seed, 16])
+    worst = {}
+
+    # -- (a) the card against the CPU ----------------------------------------------------------
+    m, n, density = GRAPH_CHECK["linalg"]
+    dense = (rng.random((m, n)) * (rng.random((m, n)) < density)).astype(np.float32)
+    square = (rng.random((m, m)) * (rng.random((m, m)) < density)).astype(np.float32)
+    other = (rng.random((m, n)) * (rng.random((m, n)) < density)).astype(np.float32)
+    host = dict(a=sparse.csr_from_dense(dense, device=cpu), sq=sparse.coo_from_dense(square, device=cpu),
+                o=sparse.coo_from_dense(other, device=cpu),
+                v=torch.from_numpy(rng.standard_normal(n).astype(np.float32)),
+                b=torch.from_numpy(rng.standard_normal((n, 32)).astype(np.float32)),
+                da=torch.from_numpy(rng.standard_normal((m, 64)).astype(np.float32)),
+                db=torch.from_numpy(rng.standard_normal((64, n)).astype(np.float32)))
+    dev = {k: sparse_to(v, cuda) if dataclasses.is_dataclass(v) else v.to(cuda) for k, v in host.items()}
+    linalg_checks = {
+        "spmv": lambda t: (sl.spmv(t["a"], t["v"]),),
+        "spmm": lambda t: (sl.spmm(t["a"], t["b"]),),
+        "sddmm": lambda t: (lambda c: (c.rows, c.cols, c.vals))(
+            sl.sddmm(t["da"], t["db"], t["a"].to_coo(), alpha=2.0, beta=0.5)),
+        "transpose": lambda t: (lambda c: (c.indptr, c.indices, c.vals))(sl.transpose(t["a"])),
+        "degree": lambda t: (sl.degree(t["a"].to_coo()),),
+        "row_norm_csr_l1": lambda t: (sl.row_norm_csr(t["a"], "l1"),),
+        "row_norm_csr_l2": lambda t: (sl.row_norm_csr(t["a"], "l2"),),
+        "row_norm_csr_linf": lambda t: (sl.row_norm_csr(t["a"], "linf"),),
+        "symmetrize_max": lambda t: (lambda c: (c.rows, c.cols, c.vals))(sl.symmetrize(t["sq"], "max")),
+        "symmetrize_mean": lambda t: (lambda c: (c.rows, c.cols, c.vals))(sl.symmetrize(t["sq"], "mean")),
+        "add": lambda t: (lambda c: (c.rows, c.cols, c.vals, c.to_dense()))(sl.add(t["o"], t["a"].to_coo())),
+        "coo_to_csr": lambda t: (lambda c: (c.indptr, c.indices, c.vals))(sparse.coo_to_csr(t["sq"])),
+    }
+    for name, fn in linalg_checks.items():
+        worst[name] = held_card_vs_cpu(name, fn(dev), fn(host))
+
+    cpu_rows = GRAPH_CHECK["cpu_rows"]
+    natives = sorted(sparse.distance._NATIVE, key=int)
+    for mode, (rows, width), metrics in (
+            ("native", GRAPH_CHECK["native"], natives),
+            ("densify", GRAPH_CHECK["densify"],
+             [d for d in DistanceType if d not in (DistanceType.Haversine, DistanceType.Precomputed)])):
+        xh, yh = (random_csr(rng, rows, width, 64, cpu) for _ in range(2))
+        xd, yd = sparse_to(xh, cuda), sparse_to(yh, cuda)
+        xh = csr_head(xh, cpu_rows)
+        for metric in metrics:
+            arg = 3.0 if metric == DistanceType.LpUnexpanded else 2.0
+            got = sparse.pairwise_distance_sparse(xd, yd, metric, metric_arg=arg, mode=mode)
+            want = sparse.pairwise_distance_sparse(xh, yh, metric, metric_arg=arg, mode=mode)
+            worst[f"{mode}_{metric.name}"] = held_card_vs_cpu(f"{mode} {metric.name}",
+                                                              (got[:cpu_rows],), (want,))
+
+    pts = Clustered(rng, 16, 64).sample(GRAPH_CHECK["points"])
+    g_host = sparse.knn_graph(pts, 15, device=cpu)
+    t_mst, c_mst = sparse.mst(sparse_to(g_host, cuda)), sparse.mst(g_host)
+    for f in ("src", "dst", "weights"):
+        if not np.array_equal(getattr(t_mst, f), getattr(c_mst, f)):
+            raise AssertionError(f"mst: the card's {f} differ from the CPU's")
+    ipts = integer_blobs(rng, GRAPH_CHECK["points"], 16, 16)
+    t_sl = single_linkage(ipts, n_clusters=16, device=cuda)
+    c_sl = single_linkage(ipts, n_clusters=16, device=cpu)
+    if not (np.array_equal(t_sl.labels, c_sl.labels) and np.array_equal(t_sl.children, c_sl.children)
+            and np.array_equal(t_sl.sizes, c_sl.sizes)):
+        raise AssertionError("single_linkage: the card's labels, children or sizes differ from the CPU's")
+    worst["single_linkage_deltas"] = held_card_vs_cpu("single_linkage deltas", (t_sl.deltas,),
+                                                      (c_sl.deltas,))
+    coo, matvec_on = community_laplacian(rng, *GRAPH_CHECK["communities"])
+    n_lap = coo.shape[0]
+    k_eig = GRAPH_CHECK["communities"][0]
+    lam_d, vec_d = sparse.lanczos(matvec_on(cuda), n_lap, k_eig, m=64, key=seed, device=cuda)
+    lam_h, _ = sparse.lanczos(matvec_on(cpu), n_lap, k_eig, m=64, key=seed, device=cpu)
+    eig_err = float((lam_d.cpu() - lam_h).abs().max())
+    if not torch.allclose(lam_d.cpu(), lam_h, rtol=1e-3, atol=1e-3):
+        raise AssertionError(f"lanczos: eigenvalues differ by {eig_err}: {lam_d.tolist()} {lam_h.tolist()}")
+    worst["lanczos_eigenvalues"] = eig_err
+    cost = rng.random((GRAPH_CHECK["lap"], GRAPH_CHECK["lap"]))
+    got, want = lap.lap_solve(cost), lap.lap_solve_reference(cost)
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+            and abs(got[2] - want[2]) <= 1e-12 * abs(want[2])):
+        raise AssertionError("lap_solve: the C solver differs from the plain numpy solver")
+    emit(card, phase="graph", metric="card_vs_cpu", max_abs_err=worst,
+         mst_edges=int(t_mst.n_edges), lanczos_eigenvalues=lam_d.tolist(),
+         lap_total=got[2], shapes=GRAPH_CHECK, check_s=time.perf_counter() - t_phase)
+
+    # -- (b) timed at the users' shapes ----------------------------------------------------------
+    def once_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    S = GRAPH_SIZES
+    ms, checks = {}, {}
+    y = random_csr(rng, S["rows"], S["width"], S["nnz"], cuda)
+    x = random_csr(rng, S["queries"], S["width"], S["nnz"], cuda)
+    y16 = random_csr(rng, S["rows"], S["copy_width"], S["nnz"], cuda)
+    x16 = random_csr(rng, S["copy_queries"], S["copy_width"], S["nnz"], cuda)
+    for metric in (DistanceType.CosineExpanded, DistanceType.L1):
+        name = metric.name
+        ms[f"knn_sparse_copy_native_{name}"], nat = once_ms(
+            lambda: sparse.knn_sparse(x16, y16, 10, metric, mode="native"))
+        ms[f"knn_sparse_copy_densify_{name}"], den = once_ms(
+            lambda: sparse.knn_sparse(x16, y16, 10, metric, mode="densify"))
+        checks[f"ids_equal_{name}"] = same_knn_but_ties(f"knn_sparse {name}", nat, den)
+        ms[f"knn_sparse_native_{name}"], (v, i) = once_ms(
+            lambda: sparse.knn_sparse(x, y, 10, metric, mode="native"))
+        if not (torch.isfinite(v).all() and tuple(i.shape) == (S["queries"], 10)
+                and int(i.min()) >= 0 and int(i.max()) < S["rows"]):
+            raise AssertionError(f"knn_sparse native {name}: bad values or ids")
+    del y, x, y16, x16
+
+    nb, db, kb = S["blobs"]
+    Xb, yb, _ = trandom.make_blobs(seed, nb, db, n_clusters=kb, device=cuda)
+    ms["knn_graph"], g = once_ms(lambda: sparse.knn_graph(Xb, S["c"]))
+    csr = sparse.coo_to_csr(g)
+    block = torch.randn((nb, 32), device=cuda, generator=torch.Generator(device=cuda).manual_seed(seed))
+    ms["spmm"] = cuda_ms(lambda: sl.spmm(csr, block), reps=10)
+    ms["mst"], forest = once_ms(lambda: sparse.mst(g))
+    ms["single_linkage"], out = once_ms(lambda: single_linkage(Xb, n_clusters=kb, c=S["c"]))
+    if out.children.shape != (nb - 1, 2) or int(out.sizes[-1]) != nb:
+        raise AssertionError(f"single_linkage: {out.children.shape[0]} merges, the last of size "
+                             f"{int(out.sizes[-1])} (expected {nb - 1} and {nb})")
+    checks["single_linkage_ari"] = float(stats.adjusted_rand_index(yb.cpu(), torch.from_numpy(out.labels)))
+    checks["knn_graph_mst_edges"] = int(forest.n_edges)
+    kc = S["clusters"]
+    ms["partition"], (labels, emb) = once_ms(lambda: spectral.partition(g, kc, seed=seed))
+    ms["modularity_maximization"], mod_labels = once_ms(
+        lambda: spectral.modularity_maximization(g, kc, seed=seed))
+    ms["analyze_partition"], (edge_cut, ratio_cut) = once_ms(lambda: spectral.analyze_partition(g, labels))
+    ms["modularity"], q = once_ms(lambda: spectral.modularity(g, mod_labels))
+    if not (np.isfinite([edge_cut, ratio_cut, q]).all() and torch.isfinite(emb).all()
+            and labels.shape == (nb,) and mod_labels.shape == (nb,)):
+        raise AssertionError("spectral: non-finite results or wrong shapes")
+    checks.update(partition_ari=float(stats.adjusted_rand_index(yb.cpu(), torch.from_numpy(labels))),
+                  modularity_ari=float(stats.adjusted_rand_index(yb.cpu(), torch.from_numpy(mod_labels))),
+                  edge_cut=edge_cut, ratio_cut=ratio_cut, modularity=q)
+    big = rng.random((S["lap"], S["lap"]))
+    t0 = time.perf_counter()
+    _, _, total = lap.lap_solve(big)
+    ms["lap_solve"] = (time.perf_counter() - t0) * 1e3
+    checks["lap_total"] = total
+    out = {"ms": ms, "checks": checks, "phase_s": time.perf_counter() - t_phase}
+    emit(card, phase="graph", metric="ms", value=ms, checks=checks, sizes=S,
+         nnz=dict(knn_graph=g.nnz))
+    emit(card, phase="graph", metric="phase_s", value=out["phase_s"])
+    return out
+
+
 #: the parts ``--phases`` runs alone
 PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable", "robust",
-               "tiered", "multi", "replica", "prims", "geo", "data")
+               "tiered", "multi", "replica", "prims", "geo", "data", "graph")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
@@ -4026,7 +4328,8 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
     8's); ``prims``: phase 13 (:func:`prims_phase`) on phase 3's data;
     ``geo``: phase 14 (:func:`geo_phase`) on phase 3's data and the CAGRA
     index built as phase 6 builds it; ``data``: phase 15 (:func:`data_phase`)
-    on phase 3's rows. Each builds the kernels it launches first. ``tree`` is the tree whose
+    on phase 3's rows; ``graph``: phase 16 (:func:`graph_phase`) on its own
+    data. Each builds the kernels it launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
@@ -4263,6 +4566,8 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
         gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
         X = Clustered(rng, 128, 4096).sample(1_000_000)
         data_phase(card, torch.from_numpy(X).cuda(), seed)
+    if "graph" in parts:
+        graph_phase(card, seed)
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -4826,6 +5131,9 @@ def main() -> int:
 
     # ---- phase 15: the data and statistics primitives ---------------------------
     data_phase(card, X_card, args.seed)
+
+    # ---- phase 16: sparse, graphs, spectral and the LAP ----------------------------
+    graph_phase(card, args.seed)
 
     rows = []
     for name, src, line, launches, t in (

@@ -35,7 +35,7 @@ DIM = 8
 UNPORTED = {
     "core": {},
     "ops": {},
-    "cluster": {"single_linkage": "A7d", "SingleLinkageOutput": "A7d"},
+    "cluster": {},
     "neighbors": {},
     "stats": {},
     "utils": {},
@@ -44,6 +44,9 @@ UNPORTED = {
     "linalg": {},
     "matrix": {},
     "label": {},
+    "sparse": {},
+    "spectral": {},
+    "solver": {},
     "": {},
 }
 
@@ -74,6 +77,7 @@ def test_import_stays_cheap():
         "import raft_tpu_torch.neighbors, raft_tpu_torch.stats, raft_tpu_torch.utils\n"
         "import raft_tpu_torch.serve, raft_tpu_torch.random, raft_tpu_torch.linalg\n"
         "import raft_tpu_torch.matrix, raft_tpu_torch.label\n"
+        "import raft_tpu_torch.sparse, raft_tpu_torch.spectral, raft_tpu_torch.solver\n"
         "maps = open('/proc/self/maps').read()\n"
         "print(raft_tpu_torch.Resources.__name__, 'triton' in sys.modules, 'jax' in sys.modules,\n"
         "      'raft_tpu' in sys.modules, 'raft_tpu_torch/_build' in maps)\n"

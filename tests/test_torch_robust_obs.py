@@ -392,7 +392,7 @@ def test_lock_manifest_is_the_jax_manifest_cut_to_the_port_s_locks():
                      "robust.faults", "obs.slo", "obs.recorder", "replica.group",
                      "replica.router", "replica.lease", "replica.autoscaler",
                      "serve.batcher", "serve.program_cache", "core.resources",
-                     "core.resources_default", "core.interruptible"}
+                     "core.resources_default", "core.interruptible", "native.build"}
     ref_locks = {e["name"]: e for e in ref["lock"]}
     for e in port["lock"]:
         assert (e["attr"], e["classes"]) == (ref_locks[e["name"]]["attr"],
