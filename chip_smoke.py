@@ -1,7 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica,prims,geo,data,graph [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica,prims,geo,data,graph,procs [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -63,7 +63,8 @@ Phases, in order; any failure exits non-zero:
    graph_degree=16, build_algo="ivf_pq")`` on phase 4's IVF-PQ index (its
    self-search runs B2), search with ``CagraSearchParams(itopk_size=128,
    search_width=8, dedup="post")`` and the bf16 table in fused and xla mode
-   on all 10,000 queries, an itopk sweep of 96/128/160, batch-1 and
+   on all 10,000 queries, an itopk sweep of 96/160 (and the seed rows'
+   sweep of 4,096/16,384), batch-1 and
    batch-10 latency through ``plan_search_params``, served through
    ``ServingEngine`` both ways; B4 at the serving shape, batch 1 and 10 and
    a 1,024-query batch against its plain version and its bound, with its
@@ -79,7 +80,7 @@ Phases, in order; any failure exits non-zero:
    ways; the per-shard scan at 80 candidates into ``scan_ring_topk(k=10)``
    (B7) against the gather of the same tiles; ``sharded_ivf_pq_lists_search``
    on phase 4's index and ``sharded_knn`` on the 1M rows, ring against
-   gather; B5-B7 timed at the served (128-row) and 1,024-row shapes, B6
+   gather; B5-B7 timed at the served (128-row) shape (checked at 1,024 rows too), B6
    and B7 beside the gather merge and the host schedule. On one card the
    rings launch no B5: its folds run inside B6's and B7's launches
    (``fused_ring_topk.folds``).
@@ -188,6 +189,36 @@ Phases, in order; any failure exits non-zero:
    each on the card against the CPU at a check shape, then timed at a
    user's shape. Plain PyTorch (the LAP a C solver on the host); no hand
    kernel runs.
+17. multi-process meshes (:func:`procs_phase`): phase 3's IVF-Flat and
+   phase 4's IVF-PQ index saved through the port's serializer, with the
+   1M rows and the queries, and read by worlds of processes started
+   together (``python3 -c``, a coordinator on ``127.0.0.1`` at a free
+   port, a join that kills them past its timeout): (a) gloo worlds of 2
+   and 4 processes whose shards all sit on ``cuda:0``: ``init_distributed``,
+   the comms self test, every verb against numpy, then in every process
+   ``sharded_ivf_flat_search`` (``n_probes=20``, the 10,000 queries in
+   1,024-row batches), ``sharded_ivf_pq_lists_search`` (2,048 queries) and
+   ``sharded_knn`` (1,024 queries over the 1M rows) under ring,
+   ``fused_ring`` and gather, and phase 7's scan ring of 80-wide tiles
+   (B7), each equal in ids and value bits to the single-process search over
+   ``make_mesh(["cuda:0"] * n)``; every process's ``ring_stage`` launches
+   (those that fold 80-wide tiles, B7's scan fold, apart) and B5
+   ``ring_fold`` launches, each above 0, and its ``ring_onecard`` launches,
+   which must be 0 (the process engine: ``ring_onecard`` never runs across
+   processes), seconds a batch with the hops' host seconds apart, and each
+   B5 fold of one served batch against ``hop_merge_reference`` on the card;
+   (b) NCCL at world size 1: init, the self test, the verbs and
+   ``sharded_knn`` against single-device brute force; (c) NCCL across
+   cards, one a process, with (a)'s checks, when several cards are
+   visible (else a line says it waits for such a machine).
+
+Every kernel build starts at once. While the others compile, phase 2 runs
+the ring's parts (the ring builds first: B5-B7's checks and timed lines),
+then phase 16's card-vs-CPU part (no kernel), then B2's checks, then B1's
+and B4's once they are built. Phases 3, 4, 6, 7, 9 and 17, which launch no
+B3, run while B3 (the longest build) compiles; phase 2's B3 checks, then
+phases 5, 8 and 10-16, follow. Every phase prints its ``phase_s`` and the
+caching allocator's state (reserved and allocated GB, ``alloc_retries``).
 
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
 256, with ties, signed zeros, padding and ``inf``) against its plain
@@ -199,8 +230,8 @@ mirror and the host schedule (the engine of distinct cards) run on the
 same mesh: same ids, same value bits. Then it splits a ring call of each
 engine and of the gather merge into host and device time
 (``ring_host_device``: device operations, host µs, device µs busy,
-``cuda_ms``) at 128 and 1,024 queries over four shards, and reads the
-kernel's stage clock (``fused_ring_topk_split``).
+``cuda_ms``) at 128 queries over four shards, and reads the kernel's
+stage clock (``fused_ring_topk_split``).
 
 Each kernel's launch count is zeroed just before its path runs (phases
 3-12 and 14) and read just after (phases 13, 15 and 16 launch none). ``--quick`` runs phases 1-2 only; ``--profile``
@@ -215,7 +246,8 @@ index, ``mutable`` phase 8, ``robust`` phase 9 (with ``--tree`` only the
 sharded backlog's QPS, :func:`sharded_serve_qps`), ``tiered`` phase 10,
 ``multi`` phase 11, ``replica`` phase 12, ``prims`` phase 13, ``geo``
 phase 14 (after B2, B4 and phase 6's CAGRA build), ``data`` phase 15,
-``graph`` phase 16;
+``graph`` phase 16, ``procs`` phase 17 (after the ring build and the 1M
+IVF-Flat and IVF-PQ indexes);
 with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
@@ -282,6 +314,15 @@ def card_line() -> str:
 
 def emit(card: str, **kv) -> None:
     print(json.dumps(dict(kv, card=card)), flush=True)
+
+
+def memory() -> dict:
+    """The caching allocator's state: GB reserved and allocated, and its
+    retries (a ``cudaMalloc`` that failed until the cache was freed)."""
+    st = torch.cuda.memory_stats()
+    return {"reserved_gb": st.get("reserved_bytes.all.current", 0) / 2 ** 30,
+            "allocated_gb": st.get("allocated_bytes.all.current", 0) / 2 ** 30,
+            "alloc_retries": st.get("num_alloc_retries", 0)}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -559,6 +600,10 @@ def rabitq_bound_ms(a, k: int) -> dict:
                 fadd_bound_ms=float(qt) * rows * 8 * bpr / H100_FADD_RATE * 1e3)
 
 
+#: queries a phase 2 B3 shape searches, by dimension
+B3_CHECK_QUERIES = {128: 256, 136: 256, 1544: 128, 3072: 512}
+
+
 def rabitq_checks(card, seed: int, index, Q_mid, max_err, this_tree: bool = True) -> None:
     """Phase 2's B3 checks: on ``index`` (d = 128), on a second RaBitQ
     index at d = 136 (17 code bytes a row, the last k-step of the bit
@@ -578,9 +623,11 @@ def rabitq_checks(card, seed: int, index, Q_mid, max_err, this_tree: bool = True
     (``fused_rabitq_topk_filter`` line: the lower bound's violations,
     asserted 0, survivors and the share re-scored), and B3 at d = 1,544 and
     3,072, 128-query tiles and k = 80 timed beside its plain version and
-    its bound (``fused_rabitq_topk_sliced_ms``). The other indexes and the
-    filters draw from their own seeds, so the later phases see the data
-    and indexes they saw before. ``this_tree``: False for an older tree's
+    its bound (``fused_rabitq_topk_sliced_ms``). The shapes search the
+    first :data:`B3_CHECK_QUERIES` queries of their dimension's 512 (the
+    plain version's cost grows with the tiles times the dimensions). The
+    other indexes and the filters draw from their own seeds, so the later
+    phases see the data and indexes they saw before. ``this_tree``: False for an older tree's
     package, whose kernel has no checking launch and no CTA plan."""
     from raft_tpu_torch.core.resources import Resources
     from raft_tpu_torch.neighbors import ivf_pq
@@ -593,17 +640,20 @@ def rabitq_checks(card, seed: int, index, Q_mid, max_err, this_tree: bool = True
     shapes += [(1544, qt, filtered, metric, k) for qt in (128, 32, 16, 8)
                for filtered, metric in ((False, l2), (True, ip)) for k in (10, 80)]
     shapes += [(1544, 128, False, ip, 256), (3072, 128, False, l2, 80), (3072, 128, True, ip, 10)]
-    indexes = {128: (index, Q_mid)}
+    t0 = time.perf_counter()
+    indexes = {128: (index, Q_mid[:B3_CHECK_QUERIES[128]])}
     for dim, rows in ((136, 65536), (1544, 65536), (3072, 16384)):
         gen = Clustered(np.random.default_rng([seed, 8, dim]), dim, 512)
         indexes[dim] = (ivf_pq.build(gen.sample(rows), ivf_pq.IvfPqIndexParams(n_lists=64, pq_bits=1),
                                      res=Resources(device="cuda", seed=seed)),
-                        torch.from_numpy(gen.sample(512)).cuda())
+                        torch.from_numpy(gen.sample(512)[:B3_CHECK_QUERIES[dim]]).cuda())
     bits = {}
     for dim, (idx, _) in indexes.items():
         keep = np.packbits(rng.random(-(-idx.size // 32) * 32) < 0.7, bitorder="little")
         bits[dim] = torch.from_numpy(keep.view(np.int32).copy()).cuda()
+    split = {"index_builds": time.perf_counter() - t0}
     for dim, qt, filtered, metric, k in shapes:
+        t0 = time.perf_counter()
         idx, Qs = indexes[dim]
         params = ivf_pq.IvfPqSearchParams(n_probes=8, fused_qt=qt)
         a = rabitq_args(idx, Qs, params, ivf_pq.DistanceType[metric],
@@ -627,6 +677,9 @@ def rabitq_checks(card, seed: int, index, Q_mid, max_err, this_tree: bool = True
                  **rabitq_bound_ms(a, k), **(rabitq_plan(a, k) if this_tree else {}))
             if this_tree:
                 rabitq_split_line(card, "kernel_vs_plain", a, **tags)
+        split[f"d{dim}"] = split.get(f"d{dim}", 0.0) + time.perf_counter() - t0
+    emit(card, phase="kernel_vs_plain", metric="fused_rabitq_topk_checks_s", value=split,
+         shapes=len(shapes), queries=B3_CHECK_QUERIES)
     del indexes
 
 
@@ -1586,9 +1639,8 @@ def ring_checks(card: str, rng, max_err: dict) -> None:
     queries, tiles of 6, 10, 23, 80 and 83 columns, one shard demoted,
     min- and max-select in turns: each bit-equal to the gather merge, to
     the kernel's plain mirror and to the host schedule (the engine of
-    shards on distinct cards) on the same mesh. Then, over four shards at
-    128 and 1,024 queries, each engine's ``ring_host_device`` line and the
-    kernel's stage split (``fused_ring_topk_split``)."""
+    shards on distinct cards) on the same mesh. Times nothing
+    (:func:`ring_lines` does)."""
     from raft_tpu_torch.ops import ring_topk as rt
     from raft_tpu_torch.parallel import make_mesh
 
@@ -1613,8 +1665,17 @@ def ring_checks(card: str, rng, max_err: dict) -> None:
              select_min=select_min, demoted=[n // 2], max_abs_err=err, grid=rt.fused_ring_topk.last_grid,
              bytes_per_query=sent.get("per_query"),
              wire_model_bytes_per_query=sent.get("model_per_query"))
+
+
+def ring_lines(card: str, rng) -> None:
+    """Over four shards at 128 queries, each ring engine's
+    ``ring_host_device`` line and the kernel's stage split
+    (``fused_ring_topk_split``)."""
+    from raft_tpu_torch.ops import ring_topk as rt
+    from raft_tpu_torch.parallel import make_mesh
+
     mesh = make_mesh(["cuda:0"] * 4)
-    for nq in (128, 1024):
+    for nq in (128,):
         vs, is_ = shard_tiles(rng, mesh.size, nq, 10, True)
         for engine, fn in (("kernel", lambda: rt.fused_ring_topk(mesh, vs, is_, 10)),
                            ("schedule", lambda: rt._run_ring(mesh, vs, is_, 10, True)),
@@ -2061,13 +2122,11 @@ def replica_phase(card, res, index, X, Q, gt_i, gen, k: int, seed: int, sizes) -
         grp.warmup("flat", k)
         grp.start()
         try:
-            qps = []
-            for _ in range(2):
-                b1.launches = 0
-                torch.cuda.synchronize()
-                got, secs = replica_backlog(grp, "flat", Qr, rsizes, k)
-                same_served(f"{n_rep} threaded replicas", got, want)
-                qps.append(rows / secs)
+            b1.launches = 0
+            torch.cuda.synchronize()
+            got, secs = replica_backlog(grp, "flat", Qr, rsizes, k)
+            same_served(f"{n_rep} threaded replicas", got, want)
+            qps = [rows / secs]
             launches = b1.launches
             if launches <= 0:
                 raise AssertionError(f"{n_rep} threaded replicas never launched B1")
@@ -4113,38 +4172,11 @@ def community_laplacian(rng, communities: int, size: int):
     return coo, matvec_on
 
 
-def graph_phase(card, seed: int) -> dict:
-    """Phase 16: sparse containers and linalg, sparse distances and kNN, the
-    kNN graph, MST, Lanczos, single linkage, spectral partitioning and the
-    LAP solver, plain PyTorch on the card (the LAP a C solver on the host;
-    :func:`run_phases`'s ``graph``). No hand kernel runs here.
-
-    (a) The card against the CPU at check shapes (:data:`GRAPH_CHECK`):
-    every ``sparse.linalg`` function on a 2,048 x 4,096 CSR at 2 % density
-    (floats within rtol/atol 1e-4, integers and structure equal);
-    ``pairwise_distance_sparse`` under every native metric at 512 x 2^20
-    columns and under every computable metric but Haversine in the densify
-    mode at 512 x 4,096 (the CPU computes the first 64 rows; rtol/atol
-    1e-4); ``mst`` of one host-built COO (the kNN graph of 4,096 points;
-    edges equal); ``single_linkage`` of 4,096 x 16 integer points (labels and
-    children equal, deltas within 1e-4); ``lanczos`` on a community graph's
-    Laplacian (the 8 smallest eigenvalues within rtol 1e-3, atol 1e-3 for
-    the zero mode: the CUDA and CPU generators differ); ``lap_solve`` at
-    n = 256 equal to the plain numpy solver.
-
-    (b) Timed at users' shapes (:data:`GRAPH_SIZES`): ``knn_sparse`` k = 10
-    under ``CosineExpanded`` and ``L1``, native over 100,000 rows x 2^20
-    columns (about 64 nnz a row) for 1,024 queries, and both modes over a
-    16,384-column copy for 256 queries (the densify path's accumulation
-    metrics take about 80 ms a 1,024-row block there), where the native ids
-    equal the densify path's but for ties within 1e-5; ``spmm`` of the kNN graph's
-    CSR by a 100,000 x 32 block; ``knn_graph``, ``mst`` and
-    ``single_linkage`` of 100,000 x 32 blobs at c = 15 (n - 1 merges, the
-    last of size n; the ARI against the blob labels reported); ``partition``
-    and ``modularity_maximization`` at 8 clusters with ``analyze_partition``
-    and ``modularity`` on that graph; ``lap_solve`` at n = 1,024."""
-    from raft_tpu_torch import random as trandom
-    from raft_tpu_torch import sparse, spectral, stats
+def graph_checks(card, seed: int):
+    """Phase 16's part (a), the card against the CPU (see
+    :func:`graph_phase`); it times nothing, so the whole run calls it while
+    the kernels build. Returns the generator part (b) goes on drawing from."""
+    from raft_tpu_torch import sparse
     from raft_tpu_torch.cluster import single_linkage
     from raft_tpu_torch.ops.distance import DistanceType
     from raft_tpu_torch.solver import lap
@@ -4233,6 +4265,51 @@ def graph_phase(card, seed: int) -> dict:
          mst_edges=int(t_mst.n_edges), lanczos_eigenvalues=lam_d.tolist(),
          lap_total=got[2], shapes=GRAPH_CHECK, check_s=time.perf_counter() - t_phase)
 
+    return rng
+
+
+def graph_phase(card, seed: int, rng=None) -> dict:
+    """Phase 16: sparse containers and linalg, sparse distances and kNN, the
+    kNN graph, MST, Lanczos, single linkage, spectral partitioning and the
+    LAP solver, plain PyTorch on the card (the LAP a C solver on the host;
+    :func:`run_phases`'s ``graph``). No hand kernel runs here.
+
+    (a) The card against the CPU at check shapes (:data:`GRAPH_CHECK`):
+    every ``sparse.linalg`` function on a 2,048 x 4,096 CSR at 2 % density
+    (floats within rtol/atol 1e-4, integers and structure equal);
+    ``pairwise_distance_sparse`` under every native metric at 512 x 2^20
+    columns and under every computable metric but Haversine in the densify
+    mode at 512 x 4,096 (the CPU computes the first 64 rows; rtol/atol
+    1e-4); ``mst`` of one host-built COO (the kNN graph of 4,096 points;
+    edges equal); ``single_linkage`` of 4,096 x 16 integer points (labels and
+    children equal, deltas within 1e-4); ``lanczos`` on a community graph's
+    Laplacian (the 8 smallest eigenvalues within rtol 1e-3, atol 1e-3 for
+    the zero mode: the CUDA and CPU generators differ); ``lap_solve`` at
+    n = 256 equal to the plain numpy solver.
+
+    (b) Timed at users' shapes (:data:`GRAPH_SIZES`): ``knn_sparse`` k = 10
+    under ``CosineExpanded`` and ``L1``, native over 100,000 rows x 2^20
+    columns (about 64 nnz a row) for 1,024 queries, and both modes over a
+    16,384-column copy for 256 queries (the densify path's accumulation
+    metrics take about 80 ms a 1,024-row block there), where the native ids
+    equal the densify path's but for ties within 1e-5; ``spmm`` of the kNN graph's
+    CSR by a 100,000 x 32 block; ``knn_graph``, ``mst`` and
+    ``single_linkage`` of 100,000 x 32 blobs at c = 15 (n - 1 merges, the
+    last of size n; the ARI against the blob labels reported); ``partition``
+    and ``modularity_maximization`` at 8 clusters with ``analyze_partition``
+    and ``modularity`` on that graph; ``lap_solve`` at n = 1,024."""
+    from raft_tpu_torch import random as trandom
+    from raft_tpu_torch import sparse, spectral, stats
+    from raft_tpu_torch.cluster import single_linkage
+    from raft_tpu_torch.ops.distance import DistanceType
+    from raft_tpu_torch.solver import lap
+
+    t_phase = time.perf_counter()
+    if rng is None:  # part (a) has not run yet
+        rng = graph_checks(card, seed)
+    sl = sparse.linalg
+    cuda = torch.device("cuda")
+
     # -- (b) timed at the users' shapes ----------------------------------------------------------
     def once_ms(fn):
         torch.cuda.synchronize()
@@ -4298,9 +4375,441 @@ def graph_phase(card, seed: int) -> dict:
     return out
 
 
+# -- phase 17: multi-process meshes ----------------------------------------------------
+
+#: merge modes phase 17 runs in every process
+PROCS_MODES = ("ring", "fused_ring", "gather")
+
+
+def procs_verb_blocks(n: int, seed: int = 23):
+    """Phase 17's verb inputs for a world of ``n``: ``[n, 4, 3]`` blocks
+    and ``[n, n, 2, 3]`` scatter buffers (f32, one a rank)."""
+    rng = np.random.default_rng([seed, n])
+    return (rng.standard_normal((n, 4, 3)).astype(np.float32),
+            rng.standard_normal((n, n, 2, 3)).astype(np.float32))
+
+
+def procs_verbs_numpy(n: int):
+    """Every verb's output on each rank, computed in numpy from
+    :func:`procs_verb_blocks` (reductions in rank order, as the verbs add)."""
+    x, sc = procs_verb_blocks(n)
+
+    def ordered(op):
+        acc = x[0].copy()
+        for b in x[1:]:
+            acc = op(acc, b)
+        return acc
+
+    red = {"sum": ordered(np.add), "max": ordered(np.maximum), "min": ordered(np.minimum),
+           "prod": ordered(np.multiply)}
+    zero = np.zeros_like(x[0])
+    c = x.shape[1] // n if x.shape[1] % n == 0 else None
+    want = {}
+    for r in range(n):
+        w = {f"allreduce_{op}": v for op, v in red.items()}
+        w["allgather"] = x
+        w["allgather_tiled"] = x.reshape(-1, x.shape[2])
+        if c:
+            w["reducescatter"] = red["sum"][r * c:(r + 1) * c]
+        w["bcast"] = x[n - 1]
+        w["reduce"] = red["sum"] if r == n - 1 else zero
+        w["ppermute"] = x[(r - 1) % n]
+        w["send_recv"] = x[0] if r == n - 1 else zero
+        w["barrier"] = np.array(n, np.int32)
+        w["gather"] = x if r == n - 1 else np.zeros_like(x)
+        w["scatter"] = sc[n - 1][r]
+        partner = {0: n - 1, n - 1: 0}
+        w["device_sendrecv"] = x[partner[r]] if r in partner and n > 1 else (
+            x[r] if n == 1 else zero)
+        src = {0: n - 1, n // 2: n - 1}
+        w["multicast_sendrecv"] = x[src[r]] if r in src else zero
+        w["comm_rank"] = np.array(r, np.int32)
+        want[r] = w
+    return want
+
+
+def procs_verbs(mesh, n: int) -> dict:
+    """Every verb over ``mesh`` (one local shard a process) against
+    :func:`procs_verbs_numpy`: ``{verb: equal}`` for this process's rank."""
+    from raft_tpu_torch.parallel import comms
+
+    x, sc = procs_verb_blocks(n)
+    r = mesh.local_ranks[0]
+    dev = mesh.devices[0]
+    xs = [torch.from_numpy(x[r]).to(dev)]
+    scs = [torch.from_numpy(sc[r]).to(dev)]
+    got = {f"allreduce_{op}": comms.allreduce(mesh, xs, op=op) for op in ("sum", "max", "min",
+                                                                           "prod")}
+    got["allgather"] = comms.allgather(mesh, xs)
+    got["allgather_tiled"] = comms.allgather(mesh, xs, tiled=True)
+    if x.shape[1] % n == 0:
+        got["reducescatter"] = comms.reducescatter(mesh, xs)
+    got["bcast"] = comms.bcast(mesh, xs, root=n - 1)
+    got["reduce"] = comms.reduce(mesh, xs, root=n - 1)
+    got["ppermute"] = comms.ppermute(mesh, xs, [(i, (i + 1) % n) for i in range(n)])
+    got["send_recv"] = comms.send_recv(mesh, xs, 0, n - 1)
+    got["barrier"] = comms.barrier(mesh)
+    got["gather"] = comms.gather(mesh, xs, root=n - 1)
+    got["scatter"] = comms.scatter(mesh, scs, root=n - 1)
+    got["device_sendrecv"] = comms.device_sendrecv(mesh, xs, [(0, n - 1)] if n > 1 else [])
+    got["multicast_sendrecv"] = comms.multicast_sendrecv(mesh, xs, [(n - 1, 0), (n - 1, n // 2)])
+    got["comm_rank"] = comms.comm_rank(mesh)
+    torch.cuda.synchronize()
+    want = procs_verbs_numpy(n)[r]
+    if n == 1:
+        want["device_sendrecv"] = np.zeros_like(x[0])
+    return {v: bool(np.array_equal(t[0].cpu().numpy(), want[v])) for v, t in got.items()}
+
+
+def procs_child(rank: int, world: int, work: str, backend: str, device: str, tag: str) -> int:
+    """One process of a phase 17 world: bootstrap (``init_distributed`` at
+    the world's address), the comms self test and every verb against numpy
+    on its shard of ``global_mesh()`` (its card by default), then (unless the
+    world is the NCCL world of one) the lists-sharded searches of the
+    parent's saved indexes under every merge mode over the 10,000 (IVF-Flat)
+    and 2,048 (IVF-PQ) queries in 1,024-row batches, ``sharded_knn`` on the
+    1M rows at 1,024 queries and phase 7's scan ring (80-wide tiles, B7),
+    timed per batch with the hops' host seconds apart, with its
+    ``ring_stage`` launches (and those that fold wider tiles, B7's scan
+    fold), its B5 ``ring_fold`` launches and its ``ring_onecard`` launches
+    (B6 and B7 on one card; none here); then one more ring batch with
+    each B5 fold held against ``hop_merge_reference`` on the card (launches
+    not counted). The NCCL world of one runs ``sharded_knn`` against
+    single-device brute force. Writes ``{tag}_rank{rank}.npz`` and prints
+    one JSON line."""
+    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import ring_topk as rt
+    from raft_tpu_torch.parallel import (bootstrap, sharded_ivf_flat_search,
+                                         sharded_ivf_pq_lists_search, sharded_knn)
+
+    t0 = time.perf_counter()
+    with open(os.path.join(work, "spec.json")) as f:
+        spec = json.load(f)
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    assert bootstrap.init_distributed(spec["address"][tag], world, rank, backend=backend,
+                                      timeout_s=spec["timeout_s"])
+    mesh = bootstrap.global_mesh()  # this process's card, gloo or NCCL
+    assert mesh.devices == (dev,), (mesh.devices, dev)
+    out = {"tag": tag, "rank": rank, "world": world, "backend": backend, "mesh": repr(mesh),
+           "init_s": time.perf_counter() - t0, "self_test": bootstrap.run_comms_self_test(mesh),
+           "verbs": procs_verbs(mesh, world)}
+    k, qb = spec["k"], spec["qb"]
+    Q = torch.from_numpy(np.load(os.path.join(work, "Q.npy"))).to(dev)
+    X = torch.from_numpy(np.load(os.path.join(work, "X.npy"))).to(dev)
+    arrays = {}
+    if spec["searches"][tag]:
+        t1 = time.perf_counter()
+        flat = ivf_flat.load_path(os.path.join(work, "flat.idx"), device=dev)
+        pq = ivf_pq.load_path(os.path.join(work, "pq.idx"), device=dev)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t1
+        fp = ivf_flat.IvfFlatSearchParams(n_probes=spec["n_probes"])
+        pp = ivf_pq.IvfPqSearchParams(n_probes=spec["pq_probes"])
+        counted = (rt.hop_merge, rt.fused_ring_topk, rt.fused_scan_ring_topk)
+        for f in counted:
+            f.launches = 0
+        rt.fused_ring_topk.stage_launches = 0
+        rt.fused_scan_ring_topk.stage_launches = 0
+        rt.fused_ring_topk.hop_s = 0.0
+        timing = {}
+
+        def batched(fn, n_q):
+            outs = [fn(Q[s:s + qb]) for s in range(0, n_q, qb)]
+            return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+        for mode in PROCS_MODES:
+            for name, n_q, fn in (
+                    ("flat", Q.shape[0], lambda qc: sharded_ivf_flat_search(
+                        mesh, flat, qc, k, fp, merge_mode=mode)),
+                    ("pq", spec["pq_queries"], lambda qc: sharded_ivf_pq_lists_search(
+                        mesh, pq, qc, k, pp, merge_mode=mode)),
+                    ("knn", spec["knn_queries"], lambda qc: sharded_knn(
+                        mesh, X, qc, k, metric="sqeuclidean", merge_mode=mode))):
+                torch.cuda.synchronize()
+                h0, t1 = rt.fused_ring_topk.hop_s, time.perf_counter()
+                d, i = batched(fn, n_q)
+                torch.cuda.synchronize()
+                n_b = -(-n_q // qb)
+                timing[f"{name}_{mode}"] = {
+                    "s_per_batch": (time.perf_counter() - t1) / n_b,
+                    "hop_host_s_per_batch": (rt.fused_ring_topk.hop_s - h0) / n_b}
+                arrays[f"{name}_{mode}_d"] = d.cpu().numpy()
+                arrays[f"{name}_{mode}_i"] = i.cpu().numpy()
+        # B7 on the path: this shard's scan at 80 candidates into the scan ring
+        a = mesh.coord(mesh.local_ranks[0], "data")
+        l_local = flat.n_lists // mesh.size
+        sl = slice(a * l_local, (a + 1) * l_local)
+        qc = Q[:qb]
+        probed = ivf_flat.probe_mask(flat.centers, qc, spec["n_probes"], flat.metric)
+        v80, i80 = ivf_flat.flat_scan_core(
+            flat.list_data[sl], flat.list_indices[sl], flat.list_norms[sl], qc, probed[:, sl], None,
+            k=8 * k, metric=flat.metric, chunk_lists=ivf_flat.scan_chunk_lists(l_local,
+                                                                                 flat.max_list))
+        sv, si = rt.scan_ring_topk(mesh, [v80], [i80], k)
+        arrays["scan80_d"], arrays["scan80_i"] = sv[0].cpu().numpy(), si[0].cpu().numpy()
+        torch.cuda.synchronize()
+        out["timing"] = timing
+        out["launches"] = {f.__name__: f.launches for f in counted}
+        out["launches"]["ring_stage"] = rt.fused_ring_topk.stage_launches
+        out["launches"]["scan_ring_stage"] = rt.fused_scan_ring_topk.stage_launches
+        out["hop_host_s"] = rt.fused_ring_topk.hop_s
+        # every B5 fold of one served ring batch against its plain version
+        counts = [f.launches for f in counted] + [rt.fused_ring_topk.stage_launches,
+                                                  rt.fused_scan_ring_topk.stage_launches]
+        real, checked = rt._fold_block, []
+
+        def held(lib, dst, got, key_sign):
+            before = dst.clone()
+            real(lib, dst, got, key_sign)
+
+            def lanes(t):
+                val = t[1].view(torch.float32)
+                return (val * key_sign, t[0], val, t[2])
+
+            want = rt.hop_merge_reference(lanes(before), lanes(got))
+            same = all(torch.equal(g.view(torch.int32) if g.is_floating_point() else g,
+                                   w.view(torch.int32) if w.is_floating_point() else w)
+                       for g, w in zip(lanes(dst)[1:], want[1:]))
+            checked.append((tuple(dst.shape[1:]), same))
+
+        rt._fold_block = held
+        try:
+            sharded_ivf_flat_search(mesh, flat, Q[:qb], k, fp, merge_mode="ring")
+            torch.cuda.synchronize()
+        finally:
+            rt._fold_block = real
+        for f, c in zip(counted, counts):
+            f.launches = c
+        rt.fused_ring_topk.stage_launches, rt.fused_scan_ring_topk.stage_launches = counts[-2:]
+        out["folds_checked"] = len(checked)
+        out["fold_shapes"] = sorted({s for s, _ in checked})
+        out["folds_equal"] = all(s for _, s in checked)
+    else:  # the NCCL world of one: sharded kNN against single-device brute force
+        qc = Q[:spec["knn_queries"]]
+        d, i = sharded_knn(mesh, X, qc, k, metric="sqeuclidean")
+        from raft_tpu_torch.core.resources import Resources
+
+        own = Resources(device=device)
+        bd, bi = brute_force.search(brute_force.build(X, metric="sqeuclidean", res=own), qc, k,
+                                    dataset_tile=2048, res=own)
+        torch.cuda.synchronize()
+        out["knn_ids_equal"] = float((i == bi).float().mean())
+        out["knn_values_close"] = bool(torch.allclose(d, bd, rtol=1e-5, atol=1e-5))
+        out["knn_value_bits_equal"] = bool(torch.equal(d.view(torch.int32), bd.view(torch.int32)))
+    out["child_s"] = time.perf_counter() - t0
+    np.savez(os.path.join(work, f"{tag}_rank{rank}.npz"), **arrays)
+    bootstrap.shutdown()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def procs_world(card: str, work: str, tag: str, world: int, backend: str, devices, timeout_s):
+    """Start a phase 17 world's children together (``python3 -c``, this
+    file's tree on the path), join them with a timeout that kills them all,
+    and return each rank's JSON result and arrays; a child's failure or
+    timeout raises."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {sys.path[0]!r}); sys.path.insert(0, {here!r}); "
+            "import chip_smoke; sys.exit(chip_smoke.procs_child(int(sys.argv[1]), "
+            "int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5], sys.argv[6]))")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), work, backend,
+                               devices[r], tag], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              env=env) for r in range(world)]
+    deadline = time.monotonic() + timeout_s
+    logs = []
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            logs.append(text.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    os.makedirs("chiprun_out", exist_ok=True)
+    for r, text in enumerate(logs):
+        with open(f"chiprun_out/procs_{tag}_rank{r}.log", "w") as f:
+            f.write(text)
+    results = []
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 17 {tag}: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        last = [ln for ln in text.splitlines() if ln.startswith("{")][-1]
+        results.append((json.loads(last), dict(np.load(os.path.join(work, f"{tag}_rank{r}.npz")))))
+    return results
+
+
+def procs_check_world(card: str, tag: str, results, refs, gt_i) -> dict:
+    """A world's results against the single-process references: the self
+    test, the verbs, each search's ids and value bits under every merge
+    mode on every rank, the ring's launches and B5's folds; prints its
+    lines and returns the launch counts by rank."""
+    from raft_tpu_torch.stats.recall import neighborhood_recall
+
+    launches = {}
+    for out, arrays in results:
+        r = out["rank"]
+        if not out["self_test"] or not all(out["verbs"].values()):
+            raise AssertionError(f"phase 17 {tag} rank {r}: self test {out['self_test']}, "
+                                 f"verbs {out['verbs']}")
+        for name, (d, i) in refs.items():
+            modes = PROCS_MODES if name != "scan80" else ("",)
+            for mode in modes:
+                key = f"{name}_{mode}" if mode else name
+                gd, gi = arrays[f"{key}_d"], arrays[f"{key}_i"]
+                if not (np.array_equal(gi, i) and np.array_equal(gd.view(np.int32), d.view(np.int32))):
+                    raise AssertionError(f"phase 17 {tag} rank {r}: {key} differs from the "
+                                         f"single-process search ({(gi != i).sum()} ids)")
+        lc = out["launches"]
+        # the process engine: staging and B5 folds on the card, B7's scan fold
+        # in the staging of the 80-wide tiles, and never ring_onecard
+        if (lc["ring_stage"] <= 0 or lc["hop_merge"] <= 0 or lc["scan_ring_stage"] <= 0
+                or lc["fused_ring_topk"] != 0 or lc["fused_scan_ring_topk"] != 0):
+            raise AssertionError(f"phase 17 {tag} rank {r}: launches {lc}")
+        if out["folds_checked"] <= 0 or not out["folds_equal"]:
+            raise AssertionError(f"phase 17 {tag} rank {r}: {out['folds_checked']} B5 folds "
+                                 f"checked, equal {out['folds_equal']}")
+        launches[r] = lc
+        emit(card, phase="procs", metric="rank", world=tag, rank=r, mesh=out["mesh"],
+             init_s=out["init_s"], load_s=out["load_s"], child_s=out["child_s"], launches=lc,
+             hop_host_s=out["hop_host_s"], folds_checked=out["folds_checked"],
+             fold_shapes=out["fold_shapes"], timing=out["timing"])
+    for name in ("flat", "pq", "knn"):
+        for mode in PROCS_MODES:
+            per = [out["timing"][f"{name}_{mode}"] for out, _ in results]
+            emit(card, phase="procs", metric="seconds_a_batch", world=tag, search=name,
+                 merge_mode=mode, s_per_batch=max(t["s_per_batch"] for t in per),
+                 hop_host_s_per_batch=max(t["hop_host_s_per_batch"] for t in per),
+                 ranks=len(per))
+    n_q = {"flat": refs["flat"][1].shape[0], "pq": refs["pq"][1].shape[0],
+           "knn": refs["knn"][1].shape[0]}
+    emit(card, phase="procs", metric="recall@10", world=tag,
+         **{name: neighborhood_recall(torch.from_numpy(refs[name][1]), gt_i[:n_q[name]])
+            for name in n_q})
+    return launches
+
+
+def procs_refs(mesh, index, pq_index, X_card, Qt, spec) -> dict:
+    """The single-process answers phase 17's worlds must give: each search
+    over ``mesh`` (gather: ring and fused_ring are bit-equal to it, phase 7)
+    and the scan ring of 80-wide tiles, as numpy ``(dist, ids)``."""
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import ring_topk as rt
+    from raft_tpu_torch.parallel import (sharded_ivf_flat_search, sharded_ivf_pq_lists_search,
+                                         sharded_knn)
+
+    k, qb = spec["k"], spec["qb"]
+    fp = ivf_flat.IvfFlatSearchParams(n_probes=spec["n_probes"])
+    pp = ivf_pq.IvfPqSearchParams(n_probes=spec["pq_probes"])
+
+    def batched(fn, n_q):
+        outs = [fn(Qt[s:s + qb]) for s in range(0, n_q, qb)]
+        return (torch.cat([o[0] for o in outs]).cpu().numpy(),
+                torch.cat([o[1] for o in outs]).cpu().numpy())
+
+    refs = {"flat": batched(lambda qc: sharded_ivf_flat_search(mesh, index, qc, k, fp,
+                                                               merge_mode="gather"), Qt.shape[0]),
+            "pq": batched(lambda qc: sharded_ivf_pq_lists_search(mesh, pq_index, qc, k, pp,
+                                                                 merge_mode="gather"),
+                          spec["pq_queries"]),
+            "knn": batched(lambda qc: sharded_knn(mesh, X_card, qc, k, metric="sqeuclidean",
+                                                  merge_mode="gather"), spec["knn_queries"])}
+    n = mesh.size
+    l_local = index.n_lists // n
+    qc = Qt[:qb]
+    probed = ivf_flat.probe_mask(index.centers, qc, spec["n_probes"], index.metric)
+    vs, is_ = [], []
+    for r in range(n):
+        sl = slice(r * l_local, (r + 1) * l_local)
+        v, i = ivf_flat.flat_scan_core(
+            index.list_data[sl], index.list_indices[sl], index.list_norms[sl], qc, probed[:, sl],
+            None, k=8 * k, metric=index.metric,
+            chunk_lists=ivf_flat.scan_chunk_lists(l_local, index.max_list))
+        vs.append(v.to(mesh.devices[r]))
+        is_.append(i.to(mesh.devices[r]))
+    sv, si = rt.gather_merge(mesh, vs, is_, k, True)
+    refs["scan80"] = (sv[0].cpu().numpy(), si[0].cpu().numpy())
+    return refs
+
+
+def procs_phase(card: str, index, pq_index, X, X_card, Q, gt_i, k: int) -> dict:
+    """Phase 17: multi-process meshes on the card (see the module
+    docstring). Returns the B5, B6, B7 and staging launches of each world's
+    processes."""
+    import shutil
+    import tempfile
+
+    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from raft_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="procs_")
+    n_cards = torch.cuda.device_count()
+    worlds = [("gloo2", 2, "gloo", ["cuda:0"] * 2), ("gloo4", 4, "gloo", ["cuda:0"] * 4),
+              ("nccl1", 1, "nccl", ["cuda:0"])]
+    if n_cards >= 2:
+        m = min(4, n_cards)
+        worlds.append((f"nccl{m}", m, "nccl", [f"cuda:{i}" for i in range(m)]))
+    try:
+        t0 = time.perf_counter()
+        ivf_flat.save_path(index, os.path.join(work, "flat.idx"))
+        ivf_pq.save_path(pq_index, os.path.join(work, "pq.idx"))
+        np.save(os.path.join(work, "X.npy"), X)
+        np.save(os.path.join(work, "Q.npy"), Q)
+        spec = {"k": k, "qb": 1024, "n_probes": 20, "pq_probes": 30, "pq_queries": 2048,
+                "knn_queries": 1024, "timeout_s": 120.0,
+                "address": {tag: f"127.0.0.1:{_free_port()}" for tag, *_ in worlds},
+                "searches": {tag: backend == "gloo" or n > 1 for tag, n, backend, _ in worlds}}
+        with open(os.path.join(work, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        emit(card, phase="procs", metric="save_s", value=time.perf_counter() - t0,
+             index_bytes=os.path.getsize(os.path.join(work, "flat.idx")))
+        Qt = torch.from_numpy(Q).cuda()
+        launches = {}
+        for tag, n, backend, devices in worlds:
+            t0 = time.perf_counter()
+            refs = (procs_refs(make_mesh(devices), index, pq_index, X_card, Qt, spec)
+                    if spec["searches"][tag] else None)
+            refs_s = time.perf_counter() - t0
+            torch.cuda.empty_cache()  # the children share the card: hand back its cached blocks
+            t0 = time.perf_counter()
+            results = procs_world(card, work, tag, n, backend, devices, 240.0)
+            world_s = time.perf_counter() - t0
+            if refs is not None:
+                launches[tag] = procs_check_world(card, tag, results, refs, gt_i)
+            else:
+                out = results[0][0]
+                if (not out["self_test"] or not all(out["verbs"].values())
+                        or out["knn_ids_equal"] != 1.0 or not out["knn_values_close"]):
+                    raise AssertionError(f"phase 17 {tag}: {out}")
+                emit(card, phase="procs", metric="nccl_world_of_one", mesh=out["mesh"],
+                     self_test=out["self_test"], verbs=out["verbs"],
+                     knn_ids_equal=out["knn_ids_equal"],
+                     knn_value_bits_equal=out["knn_value_bits_equal"], child_s=out["child_s"])
+            emit(card, phase="procs", metric="world_s", world=tag, processes=n, backend=backend,
+                 value=world_s, reference_s=refs_s)
+        if n_cards < 2:
+            emit(card, phase="procs", metric="nccl_across_cards",
+                 value="waits for a machine with several cards", cards=n_cards)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit(card, phase="procs", metric="phase_s", value=time.perf_counter() - t_phase)
+    return launches
+
+
 #: the parts ``--phases`` runs alone
 PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable", "robust",
-               "tiered", "multi", "replica", "prims", "geo", "data", "graph")
+               "tiered", "multi", "replica", "prims", "geo", "data", "graph", "procs")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
@@ -4329,7 +4838,8 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
     ``geo``: phase 14 (:func:`geo_phase`) on phase 3's data and the CAGRA
     index built as phase 6 builds it; ``data``: phase 15 (:func:`data_phase`)
     on phase 3's rows; ``graph``: phase 16 (:func:`graph_phase`) on its own
-    data. Each builds the kernels it launches first. ``tree`` is the tree whose
+    data; ``procs``: phase 17 (:func:`procs_phase`) on phase 3's data and the
+    indexes of phases 3 and 4. Each builds the kernels it launches first. ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
@@ -4365,7 +4875,9 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
         emit(card, phase="build", kernel="ring_topk", build_s=build_s,
              ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
         max_err.update(fused_ring_topk=0.0, fused_scan_ring_topk=0.0)
-        ring_checks(card, np.random.default_rng([seed, 7]), max_err)
+        ring_rng = np.random.default_rng([seed, 7])
+        ring_checks(card, ring_rng, max_err)
+        ring_lines(card, ring_rng)
     if "b3" in parts or "rabitq" in parts:
         _, build_s, log = rabitq_scan.build_kernel(True)
         emit(card, phase="build", kernel="fused_rabitq_topk", build_s=build_s,
@@ -4568,6 +5080,19 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
         data_phase(card, torch.from_numpy(X).cuda(), seed)
     if "graph" in parts:
         graph_phase(card, seed)
+    if "procs" in parts:
+        _, build_s, log = rt.build_kernel(True)
+        emit(card, phase="build", kernel="ring_topk", build_s=build_s)
+        res = Resources(device="cuda", seed=seed)
+        rng = np.random.default_rng(seed)
+        gen = Clustered(rng, 128, 512)
+        gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
+        gen = Clustered(rng, 128, 4096)
+        X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
+        index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024), res=res)
+        pq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024), res=res)
+        procs_phase(card, index, pq_index, X, torch.from_numpy(X).cuda(), Q, gt_i, 10)
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -4616,21 +5141,39 @@ def main() -> int:
                "fused_rabitq_topk": rabitq_scan, "cagra_fused_search": cagra_search,
                "ring_topk": rt}
     os.makedirs("chiprun_out", exist_ok=True)
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as ex:
-        builds = {name: ex.submit(mod.build_kernel, True) for name, mod in kernels.items()}
-        built = {name: f.result() for name, f in builds.items()}
-    emit(card, phase="build", metric="parallel_build_s", value=time.perf_counter() - t0)
-    for name, (_, build_s, log) in built.items():
-        with open(f"chiprun_out/{name}_ptxas.txt", "w") as f:
-            f.write(log)
-        emit(card, phase="build", kernel=name, build_s=build_s,
-             ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
+    # every build starts now; B3's (the longest, 24 instantiations) goes on
+    # under phases 2-4, which launch no B3, and is waited for before phase 5
+    t_build = time.perf_counter()
+    pool = concurrent.futures.ThreadPoolExecutor(len(kernels))
+    builds = {name: pool.submit(mod.build_kernel, True) for name, mod in kernels.items()}
+    built = {}
+
+    def wait_builds(names):
+        for name in names:
+            _, build_s, log = built[name] = builds[name].result()
+            with open(f"chiprun_out/{name}_ptxas.txt", "w") as f:
+                f.write(log)
+            emit(card, phase="build", kernel=name, build_s=build_s,
+                 ptxas=[line for line in log.splitlines() if "registers" in line or "spill" in line])
+        if len(built) == len(kernels):
+            pool.shutdown()
+            emit(card, phase="build", metric="parallel_build_s",
+                 value=time.perf_counter() - t_build)
+
     res = Resources(device="cuda", seed=args.seed)
     rng = np.random.default_rng(args.seed)
     # the ring checks draw from their own stream, so phases 3-6 see the data
     # and requests they saw before the ring was added
     ring_rng = np.random.default_rng([args.seed, 7])
+    # phases 2 and 3 draw their data from ``rng`` in this order while the kernels build
+    d = 128
+    gen = Clustered(rng, d, 512)
+    X_mid, Q_mid_np = gen.sample(65536), gen.sample(512)
+    gen = Clustered(rng, d, 4096)
+    X, Q = gen.sample(1_000_000), gen.sample(10_000)
+    wait_builds(["ring_topk"])
+    emit(card, phase="build", metric="phase_s", value=time.perf_counter() - t_run,
+         waiting_for=[name for name in kernels if name != "ring_topk"])
     max_err = {name: 0.0 for name in ("fused_list_topk", "fused_pq_topk", "fused_rabitq_topk",
                                        "cagra_fused_search", "hop_merge", "fused_ring_topk",
                                        "fused_scan_ring_topk")}
@@ -4646,26 +5189,20 @@ def main() -> int:
                  n_split=n_split or "auto", max_abs_err=err, **tags)
 
     # ---- phase 2: kernel vs plain ----------------------------------------
-    d = 128
-    gen = Clustered(rng, d, 512)
-    X_mid = gen.sample(65536)
-    Q_mid = torch.from_numpy(gen.sample(512)).cuda()
-    flat_checks(card, args.seed, res, X_mid, Q_mid, max_err)
-    mid_pq = ivf_pq.IvfPqSearchParams(n_probes=8, fused_qt=32)
-    for label, kw, as_u8 in [("nib8", {}, False),
-                             ("p4", dict(pq_kind="kmeans", pq_bits=4), False),
-                             ("u8_ksub16", dict(pq_kind="kmeans", pq_bits=4), True),
-                             ("u8_ksub256", dict(pq_kind="kmeans", pq_bits=8), False),
-                             ("b5", dict(pq_kind="kmeans", pq_bits=5), False)]:
-        index = ivf_pq.build(X_mid, ivf_pq.IvfPqIndexParams(n_lists=64, **kw), res=res)
-        for metric in ("L2Expanded", "InnerProduct"):
-            a = pq_args(index, Q_mid, mid_pq, ivf_pq.DistanceType[metric], as_u8=as_u8)
-            for k in (10, 80):
-                check("fused_pq_topk", run_pq, a, k, metric, codes=label, code_mode=a["code_mode"],
-                      ksub=a["ksub"])
-    index = ivf_pq.build(X_mid, ivf_pq.IvfPqIndexParams(n_lists=64, pq_bits=1), res=res)
-    rabitq_checks(card, args.seed, index, Q_mid, max_err)
-    cagra_checks(card, args.seed, res, X_mid, Q_mid, max_err)
+    # While the other kernels compile, the ring's parts run first (the ring
+    # builds first: B5-B7's checks, then its timed lines), then phase 16's
+    # card-vs-CPU checks (no kernel), B2's checks once B2 is built, then B1's
+    # and B4's. The timed lines of B1 and B4 wait for their builds; B3's
+    # checks wait for B3, after phase 17.
+    t_phase = time.perf_counter()
+    parts = {}
+
+    def part(name, t0):
+        parts[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    Q_mid = torch.from_numpy(Q_mid_np).cuda()
+    t0 = time.perf_counter()
     # B5: the fold, against its plain version on the card
     for rows in (32, 2560):
         for w in (10, 80, 256):
@@ -4678,8 +5215,35 @@ def main() -> int:
                 max_err["hop_merge"] = max(max_err["hop_merge"], err)
                 emit(card, phase="kernel_vs_plain", kernel="hop_merge", rows=rows, w=w,
                      select_min=select_min, max_abs_err=err)
+    t0 = part("hop_merge", t0)
     # B6 and B7: the ring over virtual meshes, one shard demoted
     ring_checks(card, ring_rng, max_err)
+    t0 = part("ring", t0)
+    ring_lines(card, ring_rng)
+    t0 = part("ring_lines", t0)
+    graph_rng = graph_checks(card, args.seed)  # phase 16's card-vs-CPU part times nothing
+    t0 = part("graph_checks", t0)
+    wait_builds(["fused_pq_topk"])
+    t0 = part("wait_fused_pq_topk", t0)
+    mid_pq = ivf_pq.IvfPqSearchParams(n_probes=8, fused_qt=32)
+    for label, kw, as_u8 in [("nib8", {}, False),
+                             ("p4", dict(pq_kind="kmeans", pq_bits=4), False),
+                             ("u8_ksub16", dict(pq_kind="kmeans", pq_bits=4), True),
+                             ("u8_ksub256", dict(pq_kind="kmeans", pq_bits=8), False),
+                             ("b5", dict(pq_kind="kmeans", pq_bits=5), False)]:
+        index = ivf_pq.build(X_mid, ivf_pq.IvfPqIndexParams(n_lists=64, **kw), res=res)
+        for metric in ("L2Expanded", "InnerProduct"):
+            a = pq_args(index, Q_mid, mid_pq, ivf_pq.DistanceType[metric], as_u8=as_u8)
+            for k in (10, 80):
+                check("fused_pq_topk", run_pq, a, k, metric, codes=label, code_mode=a["code_mode"],
+                      ksub=a["ksub"])
+    t0 = part("fused_pq_topk", t0)
+    wait_builds(["cagra_fused_search", "fused_list_topk"])
+    t0 = part("wait_fused_list_topk", t0)
+    flat_checks(card, args.seed, res, X_mid, Q_mid, max_err)
+    t0 = part("fused_list_topk", t0)
+    cagra_checks(card, args.seed, res, X_mid, Q_mid, max_err)
+    t0 = part("cagra_fused_search", t0)
     emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
     # the build's determinism, on the mid-size set
@@ -4689,16 +5253,31 @@ def main() -> int:
     check_deterministic(card, "determinism", "ivf_pq_65536",
                         lambda: ivf_pq.build(X_mid, ivf_pq.IvfPqIndexParams(n_lists=256), res=res),
                         ("centers", "pq_centers", "list_sizes", "list_indices", "codes", "rot_sqnorms"))
+    part("determinism", t0)
+    emit(card, phase="kernel_vs_plain", metric="phase_s", value=time.perf_counter() - t_phase,
+         without="fused_rabitq_topk (after phase 4)", parts=parts, **memory())
+
+    def rabitq_part():
+        """Phase 2's B3 checks, once B3 is built."""
+        t0 = time.perf_counter()
+        wait_builds(["fused_rabitq_topk"])
+        t1 = time.perf_counter()
+        rq_mid = ivf_pq.build(X_mid, ivf_pq.IvfPqIndexParams(n_lists=64, pq_bits=1), res=res)
+        rabitq_checks(card, args.seed, rq_mid, Q_mid, max_err)
+        emit(card, phase="kernel_vs_plain", metric="phase_s_fused_rabitq_topk",
+             value=time.perf_counter() - t1, build_wait_s=t1 - t0, **memory())
+        del rq_mid
+        torch.cuda.empty_cache()  # hand back the blocks of the checks' temporaries
+
     if args.quick:
+        rabitq_part()
         print(json.dumps({"ok": True, "device": {"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return 0
 
     # ---- phase 3: IVF-Flat at full width ----------------------------------
+    t_phase = time.perf_counter()
     n, nq, k = 1_000_000, 10_000, 10
-    gen = Clustered(rng, d, 4096)
-    X = gen.sample(n)
-    Q = gen.sample(nq)
     torch.cuda.synchronize()
     mem = {"ivf_flat": [torch.cuda.memory_allocated()]}
     t0 = time.perf_counter()
@@ -4767,7 +5346,11 @@ def main() -> int:
     if args.profile:
         profile_backlog(card, eng, "sift1m", Q, starts, sizes, k, "serve_backlog_trace.json")
 
+    emit(card, phase="main", metric="phase_s", value=time.perf_counter() - t_phase,
+         **memory())
+
     # ---- phase 4: IVF-PQ at full width ------------------------------------
+    t_phase = time.perf_counter()
     X_card = torch.from_numpy(X).cuda()
     torch.cuda.synchronize()
     mem["ivf_pq"] = [torch.cuda.memory_allocated()]
@@ -4852,10 +5435,11 @@ def main() -> int:
     if args.profile:
         profile_backlog(card, eng, "sift1m_pq", Q, starts, sizes, k, "serve_pq_backlog_trace.json")
 
-    # ---- phase 5: RaBitQ ---------------------------------------------------
-    rq_launches, b3, rq_index = rabitq_phase(card, res, X, X_card, Qt, gt_i, k, kk, max_err)
+    emit(card, phase="ivf_pq", metric="phase_s", value=time.perf_counter() - t_phase,
+         **memory())
 
     # ---- phase 6: CAGRA at full width --------------------------------------
+    t_phase = time.perf_counter()
     cagra_search.cagra_fused_search.launches = 0
     pq_scan.fused_pq_topk.launches = 0
     mem["cagra"] = [torch.cuda.memory_allocated()]
@@ -4890,13 +5474,13 @@ def main() -> int:
              iters=cagra.derive_search_config(cp, k, n)[2])
     if mode_recall["fused"] < mode_recall["xla"] - 0.01:
         raise AssertionError(f"CAGRA fused recall {mode_recall['fused']} < xla {mode_recall['xla']} - 0.01")
-    for init_sample in (4096, 8192, 16384, 32768):
+    for init_sample in (4096, 16384):  # the default and the serving point
         sp = dataclasses.replace(cp, init_sample=init_sample)
         run = lambda: cagra.search(cg, Qt, k, sp, mode="fused")
         _, ids = run()
         emit(card, phase="cagra", metric="init_sample_sweep", init_sample=init_sample, mode="fused",
              recall=neighborhood_recall(ids, gt_i), qps=nq / (cuda_ms(run, reps=2) / 1e3))
-    for itopk in (96, 128, 160):
+    for itopk in (96, 160):  # around the serving point, 128, searched above
         sp = dataclasses.replace(cp, itopk_size=itopk)
         run = lambda: cagra.search(cg, Qt, k, sp)
         _, ids = run()
@@ -4929,7 +5513,11 @@ def main() -> int:
     # a batch of the 10,000-query search
     b4 = b4_main(card, cg, Qt, k, max_err)
 
+    emit(card, phase="cagra", metric="phase_s", value=time.perf_counter() - t_phase,
+         **memory())
+
     # ---- phase 7: sharded search over four virtual shards ------------------
+    t_phase = time.perf_counter()
     from raft_tpu_torch.parallel import (sharded_ivf_flat_search, sharded_ivf_pq_lists_search,
                                          sharded_knn)
 
@@ -5035,6 +5623,11 @@ def main() -> int:
         fa, fb = fold_tiles(ring_rng, B, k, True, 0), fold_tiles(ring_rng, B, k, True, 1)
         max_err["hop_merge"] = max(max_err["hop_merge"], exact_err(
             f"hop_merge at {B} rows", rt.hop_merge(fa, fb), rt.hop_merge_reference(fa, fb)))
+        if rows_q != 128:  # timed at the serving batch only; 1,024 rows are checked above
+            for f, c in zip(ring_kernels, counts):
+                f.launches = c
+            rt.fused_ring_topk.folds = counts[-1]
+            continue
         t = {
             "hop_merge": dict(ms=cuda_ms(lambda: rt.hop_merge(fa, fb), reps=50),
                               plain_ms=cuda_ms(lambda: rt.hop_merge_reference(fa, fb), reps=5),
@@ -5104,36 +5697,65 @@ def main() -> int:
         raise AssertionError(f"phase 7's rings folded {folds} blocks inside the kernel and "
                              f"launched B5 {phase7['hop_merge']} times (expected > 0 and 0)")
     emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
-
-    # ---- phase 8: the mutable index, served across a background flip -------
-    mutable = mutable_phase(card, res, X, Q, gt_i, gen, k, args.seed, immutable=index)
+    emit(card, phase="sharded", metric="phase_s", value=time.perf_counter() - t_phase,
+         **memory())
 
     # ---- phase 9: robustness in serving --------------------------------------
+    t_phase = time.perf_counter()
     robust = robust_phase(card, res, index, pq_index, cg, X_card, Q, gt_i, k, sizes)
+    emit(card, phase="robust", metric="phase_s", value=time.perf_counter() - t_phase,
+         **memory())
+
+    # ---- phase 17: multi-process meshes (while B3 compiles: it launches no B3) --
+    procs = procs_phase(card, index, pq_index, X, X_card, Q, gt_i, k)
+    emit(card, phase="procs", metric="memory", **memory())
+
+    # ---- phase 5: RaBitQ, after phase 2's B3 checks (phases 6, 7, 9 and 17 ran
+    # while B3 compiled; they launch no B3) ----------------------------------------
+    rabitq_part()
+    t_phase = time.perf_counter()
+    rq_launches, b3, rq_index = rabitq_phase(card, res, X, X_card, Qt, gt_i, k, kk, max_err)
+    emit(card, phase="rabitq", metric="phase_s", value=time.perf_counter() - t_phase,
+         **memory())
+
+    # ---- phase 8: the mutable index, served across a background flip -------
+    t_phase = time.perf_counter()
+    mutable = mutable_phase(card, res, X, Q, gt_i, gen, k, args.seed, immutable=index)
+    emit(card, phase="mutable", metric="phase_s", value=time.perf_counter() - t_phase,
+         **memory())
 
     # ---- phase 10: placement and planning ------------------------------------
     ptxas = {name: [line for line in log.splitlines() if "registers" in line or "spill" in line]
              for name, (_, _, log) in built.items()}
     tiered = tiered_phase(card, res, index, pq_index, cg, X, X_card, Q, gt_i, k, sizes, mem,
                           ptxas)
+    emit(card, phase="tiered", metric="memory", **memory())
 
     # ---- phase 11: the distributed build, query-sharded and tiered sharded --
     multi = multi_phase(card, res, X, X_card, Q, gt_i, k, sizes, pq_index, cg, rq_index)
+    emit(card, phase="multi", metric="memory", **memory())
 
     # ---- phase 12: replicated serving and the rest of obs --------------------
+    t_phase = time.perf_counter()
     replica = replica_phase(card, res, index, X, Q, gt_i, gen, k, args.seed, sizes)
+    emit(card, phase="replica", metric="phase_s", value=time.perf_counter() - t_phase,
+         **memory())
 
     # ---- phase 13: the search path's primitives --------------------------------
     prims_phase(card, res, X_card, Qt, gt_i, k, args.seed)
+    emit(card, phase="prims", metric="memory", **memory())
 
     # ---- phase 14: k-means' entry points, eps, ball cover and hnsw on B4 ---------
     geo = geo_phase(card, res, X_card, Qt, gt_i, cg, k, args.seed)
+    emit(card, phase="geo", metric="memory", **memory())
 
     # ---- phase 15: the data and statistics primitives ---------------------------
     data_phase(card, X_card, args.seed)
+    emit(card, phase="data", metric="memory", **memory())
 
     # ---- phase 16: sparse, graphs, spectral and the LAP ----------------------------
-    graph_phase(card, args.seed)
+    graph_phase(card, args.seed, rng=graph_rng)
+    emit(card, phase="graph", metric="memory", **memory())
 
     rows = []
     for name, src, line, launches, t in (
@@ -5163,6 +5785,17 @@ def main() -> int:
             rows[-1]["launches_multi"] = multi[name]
         if name == "hop_merge":  # on one card B5's folds run inside B6's and B7's launches
             rows[-1]["folds_inside_rings"] = folds
+        # phase 17, by world and rank: the process engine's B5 ring_fold
+        # launches, its ring_stage launches (B6's host schedule) and those of
+        # them that fold 80-wide tiles (B7's scan fold); ring_onecard never
+        # runs across processes
+        for name_, key, lane in (("hop_merge", "launches_procs", "hop_merge"),
+                                 ("fused_ring_topk", "ring_stage_launches_procs", "ring_stage"),
+                                 ("fused_scan_ring_topk", "scan_stage_launches_procs",
+                                  "scan_ring_stage")):
+            if name == name_:
+                rows[-1][key] = {tag: {r: lc[lane] for r, lc in ranks.items()}
+                                 for tag, ranks in procs.items()}
         if name == "fused_ring_topk":  # phase 9's backlog with shard 2 down
             rows[-1]["launches_degraded"] = robust["b6_launches"]
         if name == "cagra_fused_search":  # phase 14's hnsw searches launch B4 too

@@ -29,32 +29,45 @@ as ``±WORST`` there; the port carries ``±inf`` throughout, as the JAX
 package's XLA engine ``_ring_topk_xla`` and the gather merge do.
 
 Engines, chosen by the mesh's layout (:func:`ring_engine`), never as a
-fallback:
+fallback. A ring runs along one axis of the mesh, once in each group of
+shards along it (the other coordinates equal):
 
-* ``"kernel"`` — every shard on one card: B6 :func:`fused_ring_topk` and B7
-  :func:`fused_scan_ring_topk` are one cooperative launch of
-  ``ring_onecard`` (``raft_tpu_torch/csrc/ring_topk.cu``, the TPU kernel's
+* ``"kernel"`` — every shard of a single-controller group on one card: B6
+  :func:`fused_ring_topk` and B7 :func:`fused_scan_ring_topk` are one
+  cooperative launch of ``ring_onecard``
+  (``raft_tpu_torch/csrc/ring_topk.cu``, the TPU kernel's
   ``ring_topk.py:505``/``:530``): its CTAs play the ranks and hand each hop
   over through global memory and release/acquire flags, as the TPU kernel
   does through remote DMAs and semaphores; the staging (B7's scan fold too)
   and every fold run inside it, and it writes each shard's ``[nq, k]``
   outputs. :func:`ring_kernel_reference` is its plain mirror;
-* ``"schedule"`` — shards on distinct cards: the host schedule of B6/B7
-  (``_run_ring``): a staging kernel per shard, then per hop a peer copy of
-  one block on the sender's stream and a B5 :func:`hop_merge` fold
+* ``"schedule"`` — a single-controller group across distinct cards: the
+  host schedule of B6/B7 (``_run_ring``): a staging kernel per shard
+  (``ring_stage``, B7's scan fold for tiles wider than ``k``), then per hop
+  every shard's block moved to its right neighbour by ``mesh._moved`` (a
+  peer copy on the sender's stream) and a B5 :func:`hop_merge` fold
   (``ring_topk.py:328``) on the receiver's;
+* ``"process"`` — a process mesh (each process holds its own shards): the
+  same ``_run_ring`` in every process over its local shards
+  (``mesh.local_ranks``) on the card, ``ProcessMesh._moved`` moving the
+  blocks (a peer copy between two shards of one process, else
+  ``batch_isend_irecv``, through pinned host memory under gloo).
+  ``ring_onecard`` never runs across processes: its ranks are CTAs of one
+  launch. On CPU shards it is the plain schedule over the process verbs;
 * ``"plain"`` — CPU meshes: :func:`ring_topk_reference` (the schedule of
   ``_ring_topk_xla`` over the mesh's verbs, with the plain fold
   :func:`hop_merge_reference` and :func:`_scan_fold`).
 
-A CUDA mesh never falls back (the JAX package re-runs a failed ring on
-gather): an error at the ``comms.ring_topk`` fault seam, or in a kernel,
-propagates. ``comms.ring.*`` and the ``ring_topk`` span count once per
-call (the JAX package once per traced program).
+No engine falls back to another (the JAX package re-runs a failed ring on
+gather): an error at the ``comms.ring_topk`` fault seam, which fires once a
+call in every process, or in a kernel, propagates. ``comms.ring.*`` and the
+``ring_topk`` span count once per call (the JAX package once per traced
+program).
 """
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import List, Sequence, Tuple
 
 import torch
@@ -207,19 +220,21 @@ def _prep(v, i, k: int, select_min: bool, rank: int, n: int, scan_fold: bool = F
 
 
 def ring_topk_reference(vs, is_, k: int, select_min: bool, mesh, scan_fold: bool = False):
-    """Plain version of the ring (``_ring_topk_xla``): the same
-    reduce-scatter and all-gather hops, as raw ``comms._ppermute`` verbs
-    over the mesh (``lax.ppermute`` in the JAX package: no verb counters),
-    with the plain fold. Returns one replicated ``(vals [nq, k],
-    ids [nq, k])`` pair per shard, as two lists."""
+    """Plain version of the ring (``_ring_topk_xla``) on a one-axis mesh of
+    either kind: the same reduce-scatter and all-gather hops, as raw
+    ``comms._ppermute`` verbs over the mesh (``lax.ppermute`` in the JAX
+    package: no verb counters), with the plain fold, each local shard
+    (``mesh.local_ranks``) playing its rank. Returns one replicated
+    ``(vals [nq, k], ids [nq, k])`` pair per local shard, as two lists."""
     _check_parts(mesh, vs, is_, k)
     n = mesh.size
     nq = vs[0].shape[0]
+    ranks = mesh.local_ranks
     mesh.fork()
     states = []
-    for r in range(n):
-        with mesh.on(r):
-            key, pos, v, i, B = _prep(vs[r], is_[r], k, select_min, r, n, scan_fold)
+    for j, r in enumerate(ranks):
+        with mesh.on(j):
+            key, pos, v, i, B = _prep(vs[j], is_[j], k, select_min, r, n, scan_fold)
             states.append([x.reshape(n, B, k).clone() for x in (key, pos, v, i)])
     if n == 1:
         out = ([states[0][2][0][:nq]], [states[0][3][0][:nq]])
@@ -227,47 +242,48 @@ def ring_topk_reference(vs, is_, k: int, select_min: bool, mesh, scan_fold: bool
         return out
     perm = [(j, (j + 1) % n) for j in range(n)]
     for s in range(n - 1):
-        recv = [comms._ppermute(mesh, [st[ln][(r - s) % n] for r, st in enumerate(states)], perm)
+        recv = [comms._ppermute(mesh, [st[ln][(r - s) % n] for r, st in zip(ranks, states)], perm)
                 for ln in range(4)]
-        for r in range(n):
-            with mesh.on(r):
+        for j, r in enumerate(ranks):
+            with mesh.on(j):
                 b = (r - s - 1) % n
-                folded = _fold(tuple(states[r][ln][b] for ln in range(4)),
-                               tuple(recv[ln][r] for ln in range(4)), k)
+                folded = _fold(tuple(states[j][ln][b] for ln in range(4)),
+                               tuple(recv[ln][j] for ln in range(4)), k)
                 for ln in range(4):
-                    states[r][ln][b] = folded[ln]
+                    states[j][ln][b] = folded[ln]
     out_v = [st[2] for st in states]
     out_i = [st[3] for st in states]
     for s in range(n - 1):
-        rv = comms._ppermute(mesh, [out_v[r][(r + 1 - s) % n] for r in range(n)], perm)
-        ri = comms._ppermute(mesh, [out_i[r][(r + 1 - s) % n] for r in range(n)], perm)
-        for r in range(n):
-            with mesh.on(r):
+        rv = comms._ppermute(mesh, [out_v[j][(r + 1 - s) % n] for j, r in enumerate(ranks)], perm)
+        ri = comms._ppermute(mesh, [out_i[j][(r + 1 - s) % n] for j, r in enumerate(ranks)], perm)
+        for j, r in enumerate(ranks):
+            with mesh.on(j):
                 b = (r - s) % n
-                out_v[r][b] = rv[r]
-                out_i[r][b] = ri[r]
+                out_v[j][b] = rv[j]
+                out_i[j][b] = ri[j]
     vals, ids = [], []
-    for r in range(n):
-        with mesh.on(r):
-            vals.append(out_v[r].reshape(-1, k)[:nq])
-            ids.append(out_i[r].reshape(-1, k)[:nq])
+    for j in range(len(ranks)):
+        with mesh.on(j):
+            vals.append(out_v[j].reshape(-1, k)[:nq])
+            ids.append(out_i[j].reshape(-1, k)[:nq])
     mesh.join(vals + ids)
     return vals, ids
 
 
-def gather_merge(mesh, vs, is_, k: int, select_min: bool):
+def gather_merge(mesh, vs, is_, k: int, select_min: bool, axis=None):
     """The gather path's merge (the reference engine): every shard receives
-    every block (the raw ``comms._allgather``: no verb counters and no
-    ``comms.all_gather`` seam, as JAX's ``lax.all_gather``) and merges the shard-major
-    concatenation with ``merge_parts``. One replicated pair per shard."""
+    every block of its group along ``axis`` (the raw ``comms._allgather``:
+    no verb counters and no ``comms.all_gather`` seam, as JAX's
+    ``lax.all_gather``) and merges the shard-major concatenation with
+    ``merge_parts``. One replicated pair per local shard."""
     from raft_tpu_torch.ops.select_k import merge_parts
 
     _check_parts(mesh, vs, is_, None)
     mesh.fork()
-    all_v = comms._allgather(mesh, [v.to(torch.float32) for v in vs])
-    all_i = comms._allgather(mesh, [i.to(torch.int32) for i in is_])
+    all_v = comms._allgather(mesh, [v.to(torch.float32) for v in vs], axis=axis)
+    all_i = comms._allgather(mesh, [i.to(torch.int32) for i in is_], axis=axis)
     vals, ids = [], []
-    for r in range(mesh.size):
+    for r in range(len(mesh.devices)):
         with mesh.on(r):
             n, nq, kc = all_v[r].shape
             cat_v = all_v[r].permute(1, 0, 2).reshape(nq, n * kc)
@@ -283,9 +299,14 @@ def gather_merge(mesh, vs, is_, k: int, select_min: bool):
 
 
 def ring_engine(devices) -> str:
-    """The ring engine a mesh's layout takes: ``"plain"`` on the CPU,
-    ``"kernel"`` (one launch a ring) when every shard sits on one card,
+    """The ring engine a mesh's layout takes (``devices``: a device list or
+    a one-axis mesh): ``"process"`` for a process mesh, ``"plain"`` on the
+    CPU, ``"kernel"`` (one launch a ring) when every shard sits on one card,
     ``"schedule"`` (the host schedule) across distinct cards."""
+    if hasattr(devices, "devices"):
+        if getattr(devices, "is_process", False):
+            return "process"
+        devices = devices.devices
     devices = [d if isinstance(d, torch.device) else torch.device(d) for d in devices]
     if devices[0].type != "cuda":
         return "plain"
@@ -486,8 +507,9 @@ def _check_tiles(a, b):
 
 
 def _check_parts(mesh, vs, is_, k):
-    expects(len(vs) == mesh.size and len(is_) == mesh.size,
-            "ring: %d/%d per-shard tiles for %d shards", len(vs), len(is_), mesh.size)
+    n_local = len(mesh.devices)
+    expects(len(vs) == n_local and len(is_) == n_local,
+            "ring: %d/%d per-shard tiles for %d shards", len(vs), len(is_), n_local)
     shape = tuple(vs[0].shape)
     expects(len(shape) == 2 and shape[1] >= 1, "ring: candidates must be [nq, kc >= 1]")
     for r, (v, i) in enumerate(zip(vs, is_)):
@@ -550,7 +572,9 @@ def _stage(lib, v, i, rank: int, n: int, B: int, w: int, select_min: bool) -> to
     """The staging kernel on the current stream: shard ``rank``'s ``[nq,
     kc]`` tile into a new ring state ``[n, 3, B, w]`` int32 (pos, val bits,
     id per block), padding rows and columns, folding a tile wider than
-    ``w`` to its top ``w``."""
+    ``w`` to its top ``w``. Counts in ``fused_ring_topk.stage_launches``,
+    and a launch that folds a wider tile (B7's scan fold) also in
+    ``fused_scan_ring_topk.stage_launches``."""
     nq, kc = v.shape
     v = v.to(torch.float32).contiguous()
     i = i.to(torch.int32).contiguous()
@@ -558,61 +582,93 @@ def _stage(lib, v, i, rank: int, n: int, B: int, w: int, select_min: bool) -> to
     err = lib.ring_stage(_ptr(v), _ptr(i), nq, kc, rank, n * B, B, w, int(select_min),
                          _ptr(state), _stream())
     check_cuda(err, "ring_stage kernel launch")
+    fused_ring_topk.stage_launches += 1
+    if kc > w:
+        fused_scan_ring_topk.stage_launches += 1
     return state
+
+
+def _fold_block(lib, dst: torch.Tensor, got: torch.Tensor, key_sign: int) -> None:
+    """B5 in place on the current stream: the ring state block ``dst``
+    (``[3, B, w]`` int32: pos, val bits, id) folded with the block ``got``
+    that arrived (key = ``key_sign * val``)."""
+    _, B, w = dst.shape
+    bw = B * w
+    a = [None, _ptr(dst, 0), _ptr(dst, bw), _ptr(dst, 2 * bw)]
+    b = [None, _ptr(got, 0), _ptr(got, bw), _ptr(got, 2 * bw)]
+    _launch_fold(lib, a, b, a, B, w, key_sign)
+
+
+def _ring_stats(n: int, nq: int, B: int, w: int, **extra) -> dict:
+    """The bytes one rank sends in a ring of ``n`` shards over blocks of
+    ``B`` rows of ``w`` candidates, beside the wire model's."""
+    bw = B * w
+    per_rank = (n - 1) * bw * (RS_ENTRY_BYTES + AG_ENTRY_BYTES)
+    return dict(per_rank=per_rank, per_query=per_rank / max(nq, 1), rs_hop=bw * RS_ENTRY_BYTES,
+                ag_hop=bw * AG_ENTRY_BYTES, model_per_query=wire_bytes_per_query(n, w, "ring"),
+                **extra)
 
 
 def _ring_body(lib, mesh, states: List[torch.Tensor], nq: int, B: int, w: int,
                select_min: bool):
-    """B6's schedule over staged states; returns the per-shard outputs and
-    the bytes one rank copied."""
+    """B6's schedule over the local shards' staged states, each local shard
+    (``mesh.local_ranks``) playing its rank; every hop moves one block a
+    shard to its right neighbour through ``mesh._moved`` (a peer copy on
+    the sender's stream where both shards are local, the process backend's
+    send and receive otherwise) into a double-buffered receive slot, and
+    B5 folds it on the receiver's stream. Returns the per-shard outputs and
+    the bytes one rank sent, with ``hop_s``, the host seconds spent in the
+    hops (a staged gloo hop waits there for its sender's stream)."""
     n = mesh.size
+    ranks = mesh.local_ranks
+    slot_of = {r: j for j, r in enumerate(ranks)}
     key_sign = 1 if select_min else -1
-    bw = B * w
+    perm = [(r, (r + 1) % n) for r in range(n)]
     recv, out, ready = [], [], []
-    for r in range(n):
-        with mesh.on(r):
-            recv.append(torch.empty((2, _RS_LANES, B, w), dtype=torch.int32, device=mesh.devices[r]))
-            out.append(torch.empty((n, _AG_LANES, B, w), dtype=torch.int32, device=mesh.devices[r]))
+    for j in range(len(ranks)):
+        with mesh.on(j):
+            recv.append(torch.empty((2, _RS_LANES, B, w), dtype=torch.int32, device=mesh.devices[j]))
+            out.append(torch.empty((n, _AG_LANES, B, w), dtype=torch.int32, device=mesh.devices[j]))
             ev = torch.cuda.Event()
             ev.record()
             ready.append(ev)
-    folded = [[None] * (n - 1) for _ in range(n)]
+    folded = [[None] * (n - 1) for _ in ranks]
+    hop_s = 0.0
     # -- reduce-scatter: after hop s, shard r's block (r - s - 1) % n holds
     # every shard <= r's candidates; after n - 1 hops block (r + 1) % n is done
     for s in range(n - 1):
         slot = s % 2
-        for r in range(n):
-            right = (r + 1) % n
-            with mesh.on(r):
+        for j, r in enumerate(ranks):
+            right = slot_of.get((r + 1) % n)
+            if right is None:  # a remote receiver orders its slot on its own stream
+                continue
+            with mesh.on(j):
                 if s == 0:
-                    mesh.streams[r].wait_event(ready[right])
+                    mesh.streams[j].wait_event(ready[right])
                 if s >= 2:  # the slot's last reader, right's fold of hop s - 2, is done
-                    mesh.streams[r].wait_event(folded[right][s - 2])
-            comms.peer_copy(mesh, states[r][(r - s) % n], r, right, out=recv[right][slot])
-        for r in range(n):
-            with mesh.on(r):
-                dst = states[r][(r - s - 1) % n]
-                got = recv[r][slot]
-                a = [None, _ptr(dst, 0), _ptr(dst, bw), _ptr(dst, 2 * bw)]
-                b = [None, _ptr(got, 0), _ptr(got, bw), _ptr(got, 2 * bw)]
-                _launch_fold(lib, a, b, a, B, w, key_sign)
+                    mesh.streams[j].wait_event(folded[right][s - 2])
+        t0 = time.perf_counter()
+        got = mesh._moved([st[(r - s) % n] for r, st in zip(ranks, states)], perm,
+                          outs=[rc[slot] for rc in recv])
+        hop_s += time.perf_counter() - t0
+        for j, r in enumerate(ranks):
+            with mesh.on(j):
+                _fold_block(lib, states[j][(r - s - 1) % n], got[j], key_sign)
                 ev = torch.cuda.Event()
                 ev.record()
-                folded[r][s] = ev
+                folded[j][s] = ev
     # -- all-gather of the finished blocks as (val, id)
-    for r in range(n):
+    for j, r in enumerate(ranks):
         own = (r + 1) % n
-        with mesh.on(r):
-            out[r][own].copy_(states[r][own, 1:3])
+        with mesh.on(j):
+            out[j][own].copy_(states[j][own, 1:3])
     for s in range(n - 1):
-        for r in range(n):
-            b = (r + 1 - s) % n
-            comms.peer_copy(mesh, out[r][b], r, (r + 1) % n, out=out[(r + 1) % n][b])
-    per_rank = (n - 1) * bw * (RS_ENTRY_BYTES + AG_ENTRY_BYTES)
-    stats = dict(per_rank=per_rank, per_query=per_rank / max(nq, 1),
-                 rs_hop=bw * RS_ENTRY_BYTES, ag_hop=bw * AG_ENTRY_BYTES,
-                 model_per_query=wire_bytes_per_query(n, w, "ring"))
-    return out, stats
+        t0 = time.perf_counter()
+        mesh._moved([out[j][(r + 1 - s) % n] for j, r in enumerate(ranks)], perm,
+                    outs=[out[j][(r - s) % n] for j, r in enumerate(ranks)])
+        hop_s += time.perf_counter() - t0
+    fused_ring_topk.hop_s += hop_s
+    return out, _ring_stats(n, nq, B, w, hop_s=hop_s)
 
 
 def _finish(mesh, blocks, nq: int, w: int, val_lane: int):
@@ -629,8 +685,10 @@ def _finish(mesh, blocks, nq: int, w: int, val_lane: int):
 
 
 def _run_ring(mesh, vs, is_, k: int, select_min: bool):
-    """Stage every shard (folding tiles wider than ``k``), then B6's
-    schedule; returns the outputs and the bytes copied (None for n == 1)."""
+    """The host schedule of B6/B7 (engines ``"schedule"`` and
+    ``"process"``): stage every local shard (folding tiles wider than
+    ``k``), then :func:`_ring_body`; returns the outputs and the bytes
+    copied (None for n == 1)."""
     lib, _, _ = build_kernel()
     n = mesh.size
     nq = vs[0].shape[0]
@@ -642,9 +700,9 @@ def _run_ring(mesh, vs, is_, k: int, select_min: bool):
         mesh.join()
         return out, None
     states = []
-    for r in range(n):
-        with mesh.on(r):
-            states.append(_stage(lib, vs[r], is_[r], r, n, B, k, select_min))
+    for j, r in enumerate(mesh.local_ranks):
+        with mesh.on(j):
+            states.append(_stage(lib, vs[j], is_[j], r, n, B, k, select_min))
     if n == 1:
         return _finish(mesh, states, nq, k, 1), None
     out, stats = _ring_body(lib, mesh, states, nq, B, k, select_min)
@@ -700,7 +758,7 @@ def _run_onecard(mesh, vs, is_, k: int, select_min: bool, stages: bool = False):
     verb contract; the kernel's library records and waits the events).
     Returns the per-shard outputs (views of one ``[n, nq, k]`` tensor a
     lane, made on the caller's stream), the bytes one rank sent, and the
-    stage clock's record with ``stages``."""
+    stage clock's record with ``stages`` (whose launch counts no folds)."""
     lib, _, _ = build_kernel()
     n = mesh.size
     nq, kc = vs[0].shape
@@ -731,22 +789,25 @@ def _run_onecard(mesh, vs, is_, k: int, select_min: bool, stages: bool = False):
                                dev.index, streams, len(order))
         check_cuda(err, "ring_onecard kernel launch")
         if n > 1:
-            per_rank = (n - 1) * B * k * (RS_ENTRY_BYTES + AG_ENTRY_BYTES)
-            stats = dict(per_rank=per_rank, per_query=per_rank / nq,
-                         rs_hop=B * k * RS_ENTRY_BYTES, ag_hop=B * k * AG_ENTRY_BYTES,
-                         model_per_query=wire_bytes_per_query(n, k, "ring"))
-        fused_ring_topk.folds += n * (n - 1)
+            stats = _ring_stats(n, nq, B, k)
+        if not stages:
+            fused_ring_topk.folds += n * (n - 1)
         fused_ring_topk.last_grid = (grid_x, n, warps)
     return (list(out_v.unbind(0)), list(out_i.unbind(0))), stats, rec
 
 
-def _run(mesh, vs, is_, k: int, select_min: bool):
-    """The ring on a CUDA mesh by its layout: one launch on one card, the
-    host schedule across cards. Returns the outputs and the bytes sent."""
+def _run(mesh, vs, is_, k: int, select_min: bool, kernel):
+    """The ring on a one-axis CUDA mesh by its layout (:func:`ring_engine`):
+    one ``ring_onecard`` launch on one card, counted in ``kernel.launches``
+    (B6's or B7's wrapper), else the host schedule (across cards, or over a
+    process mesh's local shards), which launches no ``ring_onecard``.
+    Returns the outputs and the bytes sent."""
     _check_parts(mesh, vs, is_, k)
     expects(mesh.is_cuda, "the ring kernels need a CUDA mesh (CPU meshes run ring_topk_reference)")
-    if ring_engine(mesh.devices) == "kernel":
+    if ring_engine(mesh) == "kernel":
         out, stats, _ = _run_onecard(mesh, list(vs), list(is_), k, select_min)
+        if vs[0].shape[0] > 0:  # no queries: nothing launched
+            kernel.launches += 1
         return out, stats
     return _run_ring(mesh, vs, is_, k, select_min)
 
@@ -755,20 +816,23 @@ def fused_ring_topk(mesh, vs, is_, k: int, select_min: bool = True):
     """B6: the ring merge of per-shard ``[nq, kc]`` candidates on a CUDA
     mesh (see the module docstring). Returns one replicated ``(vals [nq,
     k], ids [nq, k])`` pair per shard, equal bit for bit to the gather
-    merge. Every shard on one card: one ``ring_onecard`` launch
-    (``fused_ring_topk.folds`` adds its ``n (n - 1)`` block folds,
-    ``last_grid`` holds its grid); distinct cards: the host schedule (its
-    folds count in ``hop_merge.launches``). ``fused_ring_topk.launches``
-    counts calls; ``fused_ring_topk.last_bytes`` holds the bytes one rank
-    sent in the last call beside ``wire_bytes_per_query``."""
-    out, stats = _run(mesh, vs, is_, k, select_min)
-    fused_ring_topk.launches += 1
+    merge. Every shard on one card: one ``ring_onecard`` launch (counted in
+    ``fused_ring_topk.launches``; ``fused_ring_topk.folds`` adds its ``n (n
+    - 1)`` block folds, ``last_grid`` holds its grid); distinct cards or a
+    process mesh: the host schedule, which launches no ``ring_onecard`` (its
+    staging launches count in ``fused_ring_topk.stage_launches``, its folds
+    in ``hop_merge.launches``, its host seconds in the hops in
+    ``fused_ring_topk.hop_s``). ``fused_ring_topk.last_bytes`` holds the
+    bytes one rank sent in the last call beside ``wire_bytes_per_query``."""
+    out, stats = _run(mesh, vs, is_, k, select_min, fused_ring_topk)
     fused_ring_topk.last_bytes = stats
     return out
 
 
 fused_ring_topk.launches = 0
 fused_ring_topk.folds = 0
+fused_ring_topk.stage_launches = 0
+fused_ring_topk.hop_s = 0.0
 fused_ring_topk.last_bytes = None
 fused_ring_topk.last_grid = None
 
@@ -781,10 +845,8 @@ def fused_ring_topk_stages(mesh, vs, is_, k: int, select_min: bool = True) -> to
     cycles, the CTA's own cycles, its polls of unset flags and its waits.
     Counts in no launch counter."""
     _check_parts(mesh, vs, is_, k)
-    expects(ring_engine(mesh.devices) == "kernel", "fused_ring_topk_stages: every shard on one card")
-    folds = fused_ring_topk.folds
+    expects(ring_engine(mesh) == "kernel", "fused_ring_topk_stages: every shard on one card")
     _, _, rec = _run_onecard(mesh, list(vs), list(is_), k, select_min, stages=True)
-    fused_ring_topk.folds = folds
     return rec
 
 
@@ -795,39 +857,52 @@ def fused_scan_ring_topk(mesh, vs, is_, k: int, select_min: bool = True):
     kernel of the host schedule across cards), then B6's exchange runs (with
     one shard the fold alone). Tiles no wider than ``k`` have nothing to
     fold and go to :func:`fused_ring_topk`. ``fused_scan_ring_topk.launches``
-    counts the calls that run the scan fold."""
+    counts the ``ring_onecard`` launches that run the scan fold,
+    ``fused_scan_ring_topk.stage_launches`` the host schedule's staging
+    launches that do."""
     _check_parts(mesh, vs, is_, k)
     expects(mesh.is_cuda, "fused_scan_ring_topk needs a CUDA mesh")
     if vs[0].shape[1] <= k:
         return fused_ring_topk(mesh, vs, is_, k, select_min)
-    out, _ = _run(mesh, vs, is_, k, select_min)
-    fused_scan_ring_topk.launches += 1
+    out, _ = _run(mesh, vs, is_, k, select_min, fused_scan_ring_topk)
     return out
 
 
 fused_scan_ring_topk.launches = 0
+fused_scan_ring_topk.stage_launches = 0
 
 
 # -- dispatch ---------------------------------------------------------------------
 
 
-def _dispatch(mesh, vs, is_, k: int, select_min: bool, scan: bool):
+def _dispatch(mesh, vs, is_, k: int, select_min: bool, scan: bool, axis=None):
     """:func:`ring_topk` / :func:`scan_ring_topk`: the ``comms.ring_topk``
-    fault seam (``kind="scan"`` for the scan ring), then the engine; with
-    obs enabled the ring's counters and span (``ring_topk.py:599-612``):
-    ``comms.ring.hops`` (``2 (n - 1)``), ``comms.ring.bytes{direction}``
-    (the wire model's reduce-scatter and all-gather lanes of one ``B``-row
-    block a hop) and ``ring_topk{engine}``, the engine named as JAX names
-    its own: "fused" for B6 / B7, "xla" for the plain schedule, "scan_"
-    before either for the scan ring."""
-    n, axis = mesh.size, mesh.axis_names[0]
+    fault seam (``kind="scan"`` for the scan ring), then the engine in each
+    group along ``axis``; with obs enabled the ring's counters and span
+    (``ring_topk.py:599-612``): ``comms.ring.hops`` (``2 (n - 1)``),
+    ``comms.ring.bytes{direction}`` (the wire model's reduce-scatter and
+    all-gather lanes of one ``B``-row block a hop) and ``ring_topk{engine}``,
+    the engine named as JAX names its own: "fused" for B6 / B7, "xla" for
+    the plain schedule, "scan_" before either for the scan ring."""
+    axis = comms.resolve_axis(mesh, axis)
+    one_axis = len(mesh.axis_names) == 1
+    n = mesh.size if one_axis else mesh.shape[axis]
     faults.fire("comms.ring_topk", axis=axis, n_shards=n, **({"kind": "scan"} if scan else {}))
 
+    def one(sub, v, i):
+        if sub.is_cuda:
+            return (fused_scan_ring_topk if scan else fused_ring_topk)(sub, v, i, k, select_min)
+        return ring_topk_reference(v, i, k, select_min, sub, scan_fold=scan)
+
     def run():
-        if mesh.is_cuda:
-            return (fused_scan_ring_topk if scan else fused_ring_topk)(mesh, vs, is_, k,
-                                                                       select_min)
-        return ring_topk_reference(vs, is_, k, select_min, mesh, scan_fold=scan)
+        if one_axis:
+            return one(mesh, vs, is_)
+        out_v, out_i = [None] * len(vs), [None] * len(vs)
+        for sub, slots in mesh.along(axis):
+            gv, gi = one(sub, [vs[s] for s in slots], [is_[s] for s in slots])
+            for s, a, b in zip(slots, gv, gi):
+                out_v[s], out_i[s] = a, b
+        return out_v, out_i
 
     if not obs.is_enabled():
         return run()
@@ -842,7 +917,7 @@ def _dispatch(mesh, vs, is_, k: int, select_min: bool, scan: bool):
 
 
 def ring_topk(mesh, vs: Sequence[torch.Tensor], is_: Sequence[torch.Tensor], k: int, *,
-              select_min: bool = True) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+              select_min: bool = True, axis=None) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Ring merge of per-shard candidates (``vs``/``is_``: one ``[nq, kc]``
     tile per shard, ids global). Returns one replicated ``(vals [nq, k],
     ids [nq, k])`` pair per shard, as two lists, bit-identical to the
@@ -850,16 +925,18 @@ def ring_topk(mesh, vs: Sequence[torch.Tensor], is_: Sequence[torch.Tensor], k: 
     engine); a CPU mesh the plain schedule. Fires the ``comms.ring_topk``
     fault seam first; an injected error propagates (no fallback to the
     gather merge, unlike the JAX package). With obs enabled it counts
-    ``comms.ring.*`` and records a ``ring_topk`` span."""
-    return _dispatch(mesh, vs, is_, k, select_min, scan=False)
+    ``comms.ring.*`` and records a ``ring_topk`` span. On a mesh of several
+    axes the ring runs along ``axis`` in each group of shards."""
+    return _dispatch(mesh, vs, is_, k, select_min, scan=False, axis=axis)
 
 
 def scan_ring_topk(mesh, vs: Sequence[torch.Tensor], is_: Sequence[torch.Tensor], k: int, *,
-                   select_min: bool = True) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+                   select_min: bool = True,
+                   axis=None) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Scan-fused ring merge: like :func:`ring_topk` but the local top-``k``
     fold of the full ``[nq, kc]`` tiles runs inside the ring engine
     (``merge_mode="fused_ring"``). A CUDA mesh runs B7 (B6 for tiles no
     wider than ``k``); a CPU mesh the plain schedule with
     :func:`_scan_fold`. Its seam is ``comms.ring_topk`` with
     ``kind="scan"``; the counters and span are :func:`ring_topk`'s."""
-    return _dispatch(mesh, vs, is_, k, select_min, scan=True)
+    return _dispatch(mesh, vs, is_, k, select_min, scan=True, axis=axis)

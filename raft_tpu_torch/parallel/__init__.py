@@ -1,12 +1,16 @@
-"""Distributed layer (``raft_tpu.parallel`` counterpart): a single-controller
-mesh of torch devices with the comms verb set over per-shard tensor lists;
+"""Distributed layer (``raft_tpu.parallel`` counterpart): meshes of one or
+more named axes, single-controller (one process holds every shard) or
+spanning the processes of a ``torch.distributed`` group
+(:mod:`~raft_tpu_torch.parallel.bootstrap`,
+:mod:`~raft_tpu_torch.parallel.process_comms`), with the comms verb set over
+per-shard tensor lists;
 sharded search, lists-sharded (IVF-Flat and IVF-PQ, whose per-shard
 candidates merge through the ring top-k of
 :mod:`raft_tpu_torch.ops.ring_topk` or the gather merge), query-sharded
 (IVF-PQ and CAGRA over a replicated index) and row-sharded exact kNN; and
 the distributed IVF-PQ build (full or communication-avoiding accumulator
 exchange)."""
-from raft_tpu_torch.parallel import wire_model
+from raft_tpu_torch.parallel import bootstrap, process_comms, wire_model
 from raft_tpu_torch.parallel.comms import (
     DEFAULT_AXIS,
     Mesh,
@@ -42,6 +46,8 @@ from raft_tpu_torch.parallel.sharded_ann import (
 from raft_tpu_torch.parallel.sharded_knn import sharded_knn
 
 __all__ = [
+    "bootstrap",
+    "process_comms",
     "DEFAULT_AXIS",
     "Mesh",
     "allgather",

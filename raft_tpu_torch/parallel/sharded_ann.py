@@ -17,9 +17,19 @@ index's device gets a view). A ``health`` mask demotes unhealthy shards'
 candidates to ``(worst, -1)``, which lose every fold as they lose the gather
 merge (degraded-mode search).
 
+On a mesh of several axes the lists shard along ``axis`` and replicate over
+the other axes (JAX's ``P(axis, None)``), and the merge runs along ``axis``
+in each group. On a process mesh
+(:func:`raft_tpu_torch.parallel.bootstrap.global_mesh`) every process
+passes the whole index, as the JAX package's processes do, and keeps its
+local shards' slices; the per-shard loops run over ``mesh.local_ranks``
+and every process returns the merged, replicated answer.
+
 Query-sharded search (:func:`sharded_ivf_pq_search`,
 :func:`sharded_cagra_search`): the index replicated, the queries split; each
-shard's rows are the single-device search of the same rows.
+shard's rows are the single-device search of the same rows. These and the
+distributed build run on one-axis single-controller meshes only, and raise
+``LogicError`` on the other kinds.
 
 The distributed build (:func:`sharded_ivf_pq_build`): distributed Lloyd for
 the coarse centers and distributed codebook updates, their sums exchanged
@@ -94,17 +104,18 @@ def _resolve_merge_mode(merge_mode: str, n_shards: int, k=None) -> str:
     return merge_mode
 
 
-def _exchange_merge(mesh, vs, is_, k: int, select_min: bool, merge_mode: str):
-    """Cross-shard exchange and merge of the per-shard candidates; returns
-    one replicated ``(vals, ids)`` pair per shard, as two lists."""
+def _exchange_merge(mesh, vs, is_, k: int, select_min: bool, merge_mode: str, axis=None):
+    """Cross-shard exchange and merge of the per-shard candidates along
+    ``axis``; returns one replicated ``(vals, ids)`` pair per local shard,
+    as two lists."""
     # lazy: ops.ring_topk imports parallel.comms
     from raft_tpu_torch.ops.ring_topk import gather_merge, ring_topk, scan_ring_topk
 
     if merge_mode == "fused_ring":
-        return scan_ring_topk(mesh, vs, is_, k, select_min=select_min)
+        return scan_ring_topk(mesh, vs, is_, k, select_min=select_min, axis=axis)
     if merge_mode == "ring":
-        return ring_topk(mesh, vs, is_, k, select_min=select_min)
-    return gather_merge(mesh, vs, is_, k, select_min)
+        return ring_topk(mesh, vs, is_, k, select_min=select_min, axis=axis)
+    return gather_merge(mesh, vs, is_, k, select_min, axis=axis)
 
 
 def _demote(v, i, select_min: bool):
@@ -114,15 +125,16 @@ def _demote(v, i, select_min: bool):
 
 def _shards_of(index, mesh, axis: str, replicated: dict, sharded: dict,
                layout: str = "") -> dict:
-    """Per-shard tensors, split once per (index, mesh, layout) and cached on
-    the index: ``replicated`` ones copied to each shard's device, ``sharded``
-    ones cut into equal row blocks. ``layout`` names a split other than the
+    """Per-local-shard tensors, split once per (index, mesh, layout) and
+    cached on the index: ``replicated`` ones copied to each shard's device,
+    ``sharded`` ones cut into equal row blocks along ``axis``, each shard
+    keeping its coordinate's. ``layout`` names a split other than the
     lists-sharded one (``""``), so the two never share an entry."""
     cache = index.__dict__.setdefault("_shard_cache", {})
     key = (mesh.key(), axis) + ((layout,) if layout else ())
     if key not in cache:
         parts = {name: comms.replicated(mesh, t) for name, t in replicated.items()}
-        parts.update({name: comms.row_sharded(mesh, t) for name, t in sharded.items()})
+        parts.update({name: comms.row_sharded(mesh, t, axis) for name, t in sharded.items()})
         cache[key] = parts
     return cache[key]
 
@@ -135,9 +147,10 @@ def sharded_ivf_flat_search(mesh, index, queries, k: int,
     """IVF-Flat search with the lists sharded over ``mesh``. Returns
     ``(distances [nq, k], indices [nq, k])`` on the first shard's device,
     drawn from the same probed candidate set as the single-device
-    ``search(mode="scan")``. ``health`` (one bool per shard) excludes
-    unhealthy shards from the merge; ``merge_mode`` picks the exchange
-    (``"ring"``, ``"fused_ring"``, ``"gather"`` or ``"auto"``)."""
+    ``search(mode="scan")``. ``health`` (one bool per shard along ``axis``)
+    excludes unhealthy shards from the merge; ``merge_mode`` picks the
+    exchange (``"ring"``, ``"fused_ring"``, ``"gather"`` or ``"auto"``). The
+    lists shard along ``axis`` (replicated over a mesh's other axes)."""
     if params is None:
         params = ivf_flat_mod.IvfFlatSearchParams(**kwargs)
     n_shards = comms.comm_size(mesh, axis)
@@ -161,20 +174,21 @@ def sharded_ivf_flat_search(mesh, index, queries, k: int,
     select_min = metric != DistanceType.InnerProduct
     mesh.fork()
     vs, is_ = [], []
-    for r in range(n_shards):
-        with mesh.on(r):
-            qf = qs[r]
+    for j, r in enumerate(mesh.local_ranks):
+        with mesh.on(j):
+            a = mesh.coord(r, axis)
+            qf = qs[j]
             if metric == DistanceType.CosineExpanded:
                 qf = normalize_rows(qf)
-            probed = ivf_flat_mod.probe_mask(parts["centers"][r], qf, n_probes, metric)
+            probed = ivf_flat_mod.probe_mask(parts["centers"][j], qf, n_probes, metric)
             v, i = ivf_flat_mod.flat_scan_core(
-                parts["data"][r], parts["ids"][r], parts["norms"][r], qf,
-                probed[:, r * l_local:(r + 1) * l_local], None, k=k, metric=metric, chunk_lists=g)
-            if healthy is not None and not healthy[r]:
+                parts["data"][j], parts["ids"][j], parts["norms"][j], qf,
+                probed[:, a * l_local:(a + 1) * l_local], None, k=k, metric=metric, chunk_lists=g)
+            if healthy is not None and not healthy[a]:
                 v, i = _demote(v, i, select_min)
             vs.append(v)
             is_.append(i)
-    vals, ids = _exchange_merge(mesh, vs, is_, k, select_min, mode)
+    vals, ids = _exchange_merge(mesh, vs, is_, k, select_min, mode, axis)
     return vals[0], ids[0]
 
 
@@ -215,24 +229,25 @@ def sharded_ivf_pq_lists_search(mesh, index, queries, k: int,
     select_min = metric != DistanceType.InnerProduct
     mesh.fork()
     vs, is_ = [], []
-    for r in range(n_shards):
-        with mesh.on(r):
-            qf = qs[r]
-            centers = parts["centers"][r]
+    for j, r in enumerate(mesh.local_ranks):
+        with mesh.on(j):
+            a = mesh.coord(r, axis)
+            qf = qs[j]
+            centers = parts["centers"][j]
             q_dot_c = qf @ centers.T
             probed = ivf_common.probed_from_coarse(
                 ivf_common.coarse_from_dots(q_dot_c, centers, metric), n_probes)
-            sl = slice(r * l_local, (r + 1) * l_local)
-            q_rot = qf @ parts["rotation"][r].T
+            sl = slice(a * l_local, (a + 1) * l_local)
+            q_rot = qf @ parts["rotation"][j].T
             v, i = ivf_pq_mod.pq_scan_core(
-                parts["pq_centers"][r], parts["codes"][r], parts["ids"][r], parts["sqn"][r],
+                parts["pq_centers"][j], parts["codes"][j], parts["ids"][j], parts["sqn"][j],
                 q_rot, q_dot_c[:, sl], probed[:, sl], None, k=k, metric=metric,
                 per_cluster=False, chunk_lists=g, bf16=bf16)
-            if healthy is not None and not healthy[r]:
+            if healthy is not None and not healthy[a]:
                 v, i = _demote(v, i, select_min)
             vs.append(v)
             is_.append(i)
-    vals, ids = _exchange_merge(mesh, vs, is_, k, select_min, mode)
+    vals, ids = _exchange_merge(mesh, vs, is_, k, select_min, mode, axis)
     return vals[0], ids[0]
 
 
@@ -269,6 +284,7 @@ def sharded_ivf_pq_search(mesh, index, queries, k: int,
     device, each block the single-device ``search(mode="scan")`` of the same
     rows (no refine). A RaBitQ index is rejected, as by
     :func:`sharded_ivf_pq_lists_search`."""
+    comms.expect_one_axis_controller(mesh, "sharded_ivf_pq_search")
     if params is None:
         params = ivf_pq_mod.IvfPqSearchParams(**kwargs)
     expects(not index.rabitq, "query-sharded PQ search does not take a RaBitQ index: the JAX "
@@ -319,6 +335,7 @@ def sharded_cagra_search(mesh, index, queries, k: int,
     from a ``torch.Generator`` seeded from ``(params.seed, r)``. The number
     of queries must divide by the number of shards. Returns ``(distances,
     indices)`` on the first shard's device."""
+    comms.expect_one_axis_controller(mesh, "sharded_cagra_search")
     if params is None:
         params = cagra_mod.CagraSearchParams(**kwargs)
     qs = _query_blocks(mesh, queries, axis)
@@ -445,6 +462,7 @@ def dist_lloyd_step(mesh, centers, x_local, n_lists: int, axis: str = comms.DEFA
     iterations and exchanges only the ``ca_cap`` most-churned lists
     (:func:`_ca_exchange`); it returns ``(centers, labels, carry)``, and
     ``carry=None`` (the first iteration) pays one full exchange."""
+    comms.expect_one_axis_controller(mesh, "dist_lloyd_step")
     labs, rows = [], []
     for r in range(mesh.size):
         with mesh.on(r):
@@ -537,6 +555,7 @@ def dist_codebook_step(mesh, books, resid, ksub: int, axis: str = comms.DEFAULT_
     shard. ``comm_mode="ca"`` exchanges the flattened ``[pq_dim ksub,
     pq_len + 1]`` rows as :func:`dist_lloyd_step` does and returns
     ``(books, carry)`` with ``carry = (codes, packed rows)``."""
+    comms.expect_one_axis_controller(mesh, "dist_codebook_step")
     pq_dim, _, pq_len = books[0].shape
     n_rows = pq_dim * ksub
     codes, keys, rows = [], [], []
@@ -602,6 +621,7 @@ def sharded_ivf_pq_build(mesh, dataset, params: Optional["ivf_pq_mod.IvfPqIndexP
     ``n_lists`` rows drawn by ``torch.randperm`` from a ``torch.Generator``
     seeded with ``params.seed``, which then draws the rotation
     (the JAX package draws both from its key)."""
+    comms.expect_one_axis_controller(mesh, "sharded_ivf_pq_build")
     if params is None:
         params = ivf_pq_mod.IvfPqIndexParams(**kwargs)
     dev = mesh.devices[0]
@@ -624,6 +644,7 @@ def _sharded_ivf_pq_build_from(mesh, dataset, params, init_centers, rotation, *,
     """:func:`sharded_ivf_pq_build` from given draws: ``init_centers
     [n_lists, d]`` and ``rotation [rot_dim, d]`` (how the tests feed both
     packages the JAX package's draws)."""
+    comms.expect_one_axis_controller(mesh, "sharded_ivf_pq_build")
     n_shards = comms.comm_size(mesh, axis)
     dev = mesh.devices[0]
     dataset = ser.as_tensor(dataset, dev).to(torch.float32)

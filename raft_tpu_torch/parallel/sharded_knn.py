@@ -1,10 +1,13 @@
 """Row-sharded exact kNN (``raft_tpu.parallel.sharded_knn`` counterpart).
 
-The dataset's rows are split into equal blocks, one per shard; queries are
-replicated. Each shard runs the port's tiled brute-force search on its
-block, shifts its ids to global rows, and the per-shard ``[nq, k]``
-candidates merge through the ring top-k or the gather merge (the
-``knn_merge_parts`` pattern across shards).
+The dataset's rows are split into equal blocks, one per coordinate along
+the mesh's ``axis`` (replicated over its other axes, as JAX's ``P(axis,
+None)``); queries are replicated. Each shard runs the port's tiled
+brute-force search on its block, shifts its ids to global rows, and the
+per-shard ``[nq, k]`` candidates merge along ``axis`` through the ring
+top-k or the gather merge (the ``knn_merge_parts`` pattern across shards).
+On a process mesh every process passes the whole dataset, as the JAX
+package's processes do, and keeps its local shards' blocks.
 """
 from __future__ import annotations
 
@@ -23,11 +26,12 @@ def sharded_knn(mesh: comms.Mesh, dataset, queries, k: int,
                 metric=DistanceType.L2SqrtExpanded, metric_arg: float = 2.0,
                 axis: str = comms.DEFAULT_AXIS, dataset_tile: int = 2048,
                 merge_mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact kNN with ``dataset [n, d]`` row-sharded over ``mesh`` (``n``
-    divisible by the shard count) and ``queries`` replicated. Returns
-    ``(distances [nq, k], indices [nq, k])`` on the first shard's device,
-    the same under every ``merge_mode`` (``"ring"``, ``"fused_ring"``,
-    ``"gather"``, ``"auto"`` = ring when sharded)."""
+    """Exact kNN with ``dataset [n, d]`` row-sharded along ``axis`` of
+    ``mesh`` (``n`` divisible by that axis's size) and ``queries``
+    replicated. Returns ``(distances [nq, k], indices [nq, k])`` on the
+    first local shard's device, the same under every ``merge_mode``
+    (``"ring"``, ``"fused_ring"``, ``"gather"``, ``"auto"`` = ring when
+    sharded)."""
     from raft_tpu_torch.parallel.sharded_ann import _exchange_merge, _resolve_merge_mode
 
     metric = resolve_metric(metric)
@@ -42,17 +46,18 @@ def sharded_knn(mesh: comms.Mesh, dataset, queries, k: int,
     expects(0 < k <= per, "k=%d larger than per-shard rows %d", k, per)
     select_min = is_min_close(metric)
     mode = _resolve_merge_mode(merge_mode, n_shards, k)
-    blocks = comms.row_sharded(mesh, dataset)
+    blocks = comms.row_sharded(mesh, dataset, axis)
     qs = comms.replicated(mesh, queries)
     mesh.fork()
     vs, is_ = [], []
-    for r in range(n_shards):
-        with mesh.on(r):
-            local = BruteForceIndex(dataset=blocks[r],
-                                    norms=row_norms(blocks[r]) if metric in NORM_METRICS else None,
+    for j, r in enumerate(mesh.local_ranks):
+        with mesh.on(j):
+            a = mesh.coord(r, axis)
+            local = BruteForceIndex(dataset=blocks[j],
+                                    norms=row_norms(blocks[j]) if metric in NORM_METRICS else None,
                                     metric=metric, metric_arg=float(metric_arg))
-            v, i = _search_batch(local, qs[r], None, k=k, tile=min(dataset_tile, per))
+            v, i = _search_batch(local, qs[j], None, k=k, tile=min(dataset_tile, per))
             vs.append(v)
-            is_.append(torch.where(i >= 0, i + r * per, i))
-    vals, ids = _exchange_merge(mesh, vs, is_, k, select_min, mode)
+            is_.append(torch.where(i >= 0, i + a * per, i))
+    vals, ids = _exchange_merge(mesh, vs, is_, k, select_min, mode, axis)
     return vals[0], ids[0]

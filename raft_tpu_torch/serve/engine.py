@@ -262,7 +262,10 @@ class ServingEngine:
         if algo == "tiered_sharded" and mesh is None:
             mesh, axis = index.mesh, index.axis
         if algo.startswith("sharded_") or algo == "tiered_sharded":
+            from raft_tpu_torch.parallel.comms import expect_one_axis_controller
+
             expects(mesh is not None, "sharded algo %r needs mesh=", algo)
+            expect_one_axis_controller(mesh, f"the engine's {algo} registration")
         if algo in _SHARDED_TIERABLE:
             algo, index, dataset = self._plan_tier_sharded(
                 index_id, algo, index, dataset, mesh=mesh, axis=axis, merge_mode=merge_mode,

@@ -185,6 +185,9 @@ class TieredShardedIndex:
     def __init__(self, mesh, algo: str, index, tier: ShardedHostTier, *, axis: str = "data",
                  refine_ratio: int = 8, micro_batch: int = 256, search_params=None,
                  merge_mode: str = "auto", metric_arg: float = 2.0):
+        from raft_tpu_torch.parallel.comms import expect_one_axis_controller
+
+        expect_one_axis_controller(mesh, "TieredShardedIndex")
         expects(algo in ALGOS, "tiered sharded algo must be one of %s, got %r", ALGOS, algo)
         expects(refine_ratio >= 1, "refine_ratio must be >= 1")
         expects(micro_batch >= 1, "micro_batch must be >= 1")
