@@ -207,10 +207,29 @@ Phases, in order; any failure exits non-zero:
    which must be 0 (the process engine: ``ring_onecard`` never runs across
    processes), seconds a batch with the hops' host seconds apart, and each
    B5 fold of one served batch against ``hop_merge_reference`` on the card;
+   then in every process the other sharded entry points
+   (:func:`entry_cases`, on phase 6's CAGRA index too): the 1M
+   ``sharded_ivf_pq_build`` with phase 11's params, full and CA (every
+   field's digest equal across processes and to the single-process
+   build; build seconds and the host seconds of its exchanges),
+   ``sharded_ivf_pq_search`` and ``sharded_cagra_search`` of 4,096
+   queries (``init_sample=16384``), phase 11 (f)'s ``tiered_sharded``
+   registration served over 2,048 queries under ring, ``fused_ring`` and
+   gather, and a ``sharded_ivf_flat`` registration served over 1,024
+   queries with shard 1's probe failing in one process only (coverage
+   ``1 - 1/n`` and ``failed_shards (1,)`` in every process), each equal in
+   ids and value bits to ``make_mesh(["cuda:0"] * n)``, with their
+   ``ring_stage`` and B5 launches counted apart (0 ``ring_onecard``);
    (b) NCCL at world size 1: init, the self test, the verbs and
-   ``sharded_knn`` against single-device brute force; (c) NCCL across
-   cards, one a process, with (a)'s checks, when several cards are
-   visible (else a line says it waits for such a machine).
+   ``sharded_knn`` against single-device brute force, the build against
+   the mesh of one shard and the query-sharded searches against the
+   single-device searches; (c) NCCL across cards, one a process, with
+   (a)'s checks, when several cards are visible (else a line says it
+   waits for such a machine); (d) in the parent, the same entry points on
+   ``make_mesh(["cuda:0"] * 4, shape=(2, 2), axis_names=("rows",
+   "cols"))`` along ``cols`` (the build CA only), each equal to
+   ``make_mesh(["cuda:0"] * 2)``'s, with its ``ring_onecard`` launches
+   (one a group a ring).
 
 Every kernel build starts at once. While the others compile, phase 2 runs
 the ring's parts (the ring builds first: B5-B7's checks and timed lines),
@@ -246,8 +265,8 @@ index, ``mutable`` phase 8, ``robust`` phase 9 (with ``--tree`` only the
 sharded backlog's QPS, :func:`sharded_serve_qps`), ``tiered`` phase 10,
 ``multi`` phase 11, ``replica`` phase 12, ``prims`` phase 13, ``geo``
 phase 14 (after B2, B4 and phase 6's CAGRA build), ``data`` phase 15,
-``graph`` phase 16, ``procs`` phase 17 (after the ring build and the 1M
-IVF-Flat and IVF-PQ indexes);
+``graph`` phase 16, ``procs`` phase 17 (after the ring and B2 builds and
+the 1M IVF-Flat, IVF-PQ and CAGRA indexes);
 with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
@@ -262,6 +281,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -3061,7 +3081,8 @@ def tiered_phase(card, res, index, pq_index, cg, X, X_card, Q, gt_i, k: int, siz
     return launches
 
 
-def multi_phase(card, res, X, X_card, Q, gt_i, k: int, sizes, pq_index, cg, rq_index) -> dict:
+def multi_phase(card, res, X, X_card, Q, gt_i, k: int, sizes, pq_index, cg, rq_index,
+                ca_digest=None) -> dict:
     """Phase 11: the rest of the multi-device layer at full width over
     ``make_mesh(["cuda:0"] * 4)`` (:func:`run_phases`'s ``multi``), on phases
     3-7's data and indexes (1,000,000 x 128, phase 4's IVF-PQ ``pq_index``,
@@ -3072,7 +3093,9 @@ def multi_phase(card, res, X, X_card, Q, gt_i, k: int, sizes, pq_index, cg, rq_i
         ``pq_dim=64``, ``pq_bits=8``) with ``comm_mode="full"`` and ``"ca"``
         (obs on: ``comms.build.bytes`` and ``.launches`` by phase beside the
         wire model's bytes an iteration), then ``"ca"`` again with obs off,
-        equal in every field; build seconds and peak
+        equal in every field (in the whole run phase 17's single-controller
+        CA build of four shards, made before, stands in for that rebuild:
+        every field's digest equal); build seconds and peak
         ``torch.cuda.max_memory_allocated()``; recall@10 of ``search(mode=
         "scan", n_probes=30)`` over 2,048 queries of each build at least
         that of a single-device ``ivf_pq.build(pq_kind="kmeans")`` of the
@@ -3174,16 +3197,23 @@ def multi_phase(card, res, X, X_card, Q, gt_i, k: int, sizes, pq_index, cg, rq_i
                  bp.pq_dim, 1 << bp.pq_bits, d // bp.pq_dim, mesh.size, comm_mode=mode),
              peak_allocated_bytes=torch.cuda.max_memory_allocated() - base,
              max_list=index.max_list)
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    again, again_s = timed_build(lambda: sharded_ivf_pq_build(mesh, X_card, bp, comm_mode="ca"))
-    diff = differing_fields(built["ca"], again, fields)
-    emit(card, phase="multi", metric="sharded_ivf_pq_build_determinism", comm_mode="ca",
-         build_s_obs_off=again_s, peak_allocated_bytes=torch.cuda.max_memory_allocated() - base,
-         fields_differing=diff)
+    if ca_digest is None:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        again, again_s = timed_build(lambda: sharded_ivf_pq_build(mesh, X_card, bp,
+                                                                  comm_mode="ca"))
+        diff = differing_fields(built["ca"], again, fields)
+        emit(card, phase="multi", metric="sharded_ivf_pq_build_determinism", comm_mode="ca",
+             build_s_obs_off=again_s,
+             peak_allocated_bytes=torch.cuda.max_memory_allocated() - base, fields_differing=diff)
+        del again
+    else:  # phase 17 built the same index on the same layout before
+        digest = index_digest(built["ca"])
+        diff = [f for f in PQ_FIELDS if digest[f] != ca_digest[f]]
+        emit(card, phase="multi", metric="sharded_ivf_pq_build_determinism", comm_mode="ca",
+             against="phase 17's build on make_mesh(['cuda:0'] * 4)", fields_differing=diff)
     if diff:
         raise AssertionError(f"the sharded IVF-PQ build built twice from one seed differs in {diff}")
-    del again
     single, single_s = timed_build(lambda: ivf_pq.build(
         X_card, dataclasses.replace(bp, pq_kind="kmeans"), res=res))
     rec = {"single_device": scan_recall(single)}
@@ -4461,6 +4491,153 @@ def procs_verbs(mesh, n: int) -> dict:
     return {v: bool(np.array_equal(t[0].cpu().numpy(), want[v])) for v, t in got.items()}
 
 
+#: the fields of an IVF-PQ index phase 17 digests
+PQ_FIELDS = ("centers", "rotation", "pq_centers", "codes", "list_indices", "list_sizes",
+             "rot_sqnorms")
+
+
+def index_digest(index) -> dict:
+    """A short sha256 of each field's bytes (indexes too large to ship
+    between processes are compared by these)."""
+    return {f: hashlib.sha256(getattr(index, f).contiguous().cpu().numpy().tobytes())
+            .hexdigest()[:20] for f in PQ_FIELDS}
+
+
+def with_verb_clock(fn):
+    """``(fn(), {"s", "calls"})``: the host seconds spent inside the
+    ``comms.allreduce`` and ``comms.allgather`` calls ``fn`` makes (the
+    distributed build's exchanges: on a gloo process mesh the pinned host
+    hops and the wait for the sender's stream)."""
+    from raft_tpu_torch.parallel import comms
+
+    clock = {"s": 0.0, "calls": 0}
+    saved = {v: getattr(comms, v) for v in ("allreduce", "allgather")}
+
+    def timed(f):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **kw)
+            finally:
+                clock["s"] += time.perf_counter() - t0
+                clock["calls"] += 1
+        return call
+
+    for v, f in saved.items():
+        setattr(comms, v, timed(f))
+    try:
+        return fn(), clock
+    finally:
+        for v, f in saved.items():
+            setattr(comms, v, f)
+
+
+def holds_first(mesh, axis: str, s: int) -> bool:
+    """Whether this process holds the first shard at coordinate ``s`` along
+    ``axis`` (always on one controller)."""
+    return min(r for r in range(mesh.size) if mesh.coord(r, axis) == s) in mesh.local_ranks
+
+
+def tiered_budget(pq_index, n_shards: int) -> int:
+    """Phase 11 (f)'s per-shard budget: the codes stay, half the raw rows
+    would not fit, so a sharded registration with ``dataset=`` converts to
+    ``tiered_sharded``."""
+    from raft_tpu_torch.ops import hbm_model
+
+    r = hbm_model.residency_for_index("sharded_pq", "ivf_pq", pq_index, refine_rows=pq_index.size)
+    req = sum(c.per_shard_bytes(n_shards) for c in r.components if c.required)
+    raw = sum(c.per_shard_bytes(n_shards) for c in r.components if not c.required)
+    _, stage_dev = hbm_model.staging_footprint(pq_index.dim)
+    return int((req + stage_dev + raw // 2) / hbm_model.HBM_HEADROOM)
+
+
+def serve_requests(eng, index_id: str, Q, sizes, k: int):
+    """Every request of ``sizes`` (consecutive rows of ``Q``) submitted in
+    order, then ``run_until_idle()``: the batches form from the queue
+    alone. Returns ``(dist, ids, {(coverage, failed_shards)}, seconds)``."""
+    starts = np.cumsum([0] + list(sizes[:-1]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [eng.submit(index_id, Q[s:s + m], k) for s, m in zip(starts, sizes)]
+    eng.run_until_idle()
+    out = [f.result() for f in futs]
+    secs = time.perf_counter() - t0
+    return (np.concatenate([r.distances for r in out]), np.concatenate([r.indices for r in out]),
+            sorted({(r.coverage, tuple(r.failed_shards)) for r in out}), secs)
+
+
+def entry_cases(mesh, axis: str, flat, pq, cg, X_card, Q, spec, modes=("full", "ca"),
+              parts=("build", "query", "tiered", "down")):
+    """Phase 17's other sharded entry points on ``mesh`` along ``axis``, the
+    same in the parent (one controller) and in every process of a world:
+    ``sharded_ivf_pq_build`` of the 1M rows for each of ``modes`` (digests,
+    seconds, host seconds of its exchanges), ``sharded_ivf_pq_search`` and
+    ``sharded_cagra_search`` of ``spec["qs_queries"]`` queries, phase 11
+    (f)'s ``tiered_sharded`` registration served under ring, fused_ring and
+    gather, and a ``sharded_ivf_flat`` registration served with shard 1's
+    probe failing in the one process that holds its first shard. Returns
+    ``(arrays, info)``."""
+    from raft_tpu_torch.core.errors import ShardFailure
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.parallel import (sharded_cagra_search, sharded_ivf_pq_build,
+                                         sharded_ivf_pq_search)
+    from raft_tpu_torch.robust import faults
+    from raft_tpu_torch.serve import ServingEngine
+
+    k = spec["k"]
+    dev = mesh.devices[0]
+    arrays, info = {}, {"build_s": {}, "build_verb_host_s": {}, "build_verb_calls": {},
+                        "s": {}, "digest": {}}
+    if "build" in parts:
+        bp = ivf_pq.IvfPqIndexParams(**spec["build"])
+        for mode in modes:
+            (idx, secs), clock = with_verb_clock(lambda: timed_build(
+                lambda: sharded_ivf_pq_build(mesh, X_card, bp, axis=axis, comm_mode=mode)))
+            info["build_s"][mode], info["digest"][mode] = secs, index_digest(idx)
+            info["build_verb_host_s"][mode] = clock["s"]
+            info["build_verb_calls"][mode] = clock["calls"]
+            del idx
+    pp = ivf_pq.IvfPqSearchParams(n_probes=spec["pq_probes"])
+    if "query" in parts:
+        Qt = torch.from_numpy(Q[:spec["qs_queries"]]).to(dev)
+        cp = cagra.CagraSearchParams(**spec["cagra"])
+        for name, fn in (("qs_pq", lambda: sharded_ivf_pq_search(mesh, pq, Qt, k, pp, axis=axis)),
+                         ("qs_cagra", lambda: sharded_cagra_search(mesh, cg, Qt, k, cp,
+                                                                    axis=axis))):
+            (d, i), info["s"][name] = timed_build(fn)
+            arrays[name + "_d"], arrays[name + "_i"] = d.cpu().numpy(), i.cpu().numpy()
+    res = Resources(device=str(dev))
+    if "tiered" in parts:
+        eng = ServingEngine(max_batch=128, max_wait_ms=0.0, queue_capacity=len(Q), res=res,
+                            hbm_budget_bytes=tiered_budget(pq, mesh.shape[axis]))
+        eng.register("ring", "sharded_ivf_pq_lists", pq, params=pp, mesh=mesh, axis=axis,
+                     dataset=X_card, merge_mode="ring")
+        tsi = eng._indexes["ring"].index
+        info["tiered_algo"] = eng._indexes["ring"].algo
+        for mode in PROCS_MODES[1:]:
+            eng.register(mode, "tiered_sharded", tsi, merge_mode=mode)
+        for mode in PROCS_MODES:
+            d, i, cov, info["s"]["tiered_" + mode] = serve_requests(eng, mode, Q,
+                                                                  spec["tiered_sizes"], k)
+            arrays[f"tiered_{mode}_d"], arrays[f"tiered_{mode}_i"] = d, i
+            info["tiered_cov_" + mode] = cov
+        del eng, tsi
+    if "down" in parts:
+        eng = ServingEngine(max_batch=128, max_wait_ms=0.0, queue_capacity=len(Q), res=res)
+        eng.register("down", "sharded_ivf_flat", flat,
+                     params=ivf_flat.IvfFlatSearchParams(n_probes=spec["n_probes"]), mesh=mesh,
+                     axis=axis)
+        here = holds_first(mesh, axis, 1)
+        ctx = (faults.injected("sharded_ann.shard_scan", error=ShardFailure("down", shard=1),
+                               match={"shard": 1}) if here else contextlib.nullcontext())
+        with ctx:
+            d, i, cov, info["s"]["down"] = serve_requests(eng, "down", Q, spec["down_sizes"], k)
+        arrays["down_d"], arrays["down_i"], info["down_cov"] = d, i, cov
+        info["fault_installed_here"] = here
+    return arrays, info
+
+
 def procs_child(rank: int, world: int, work: str, backend: str, device: str, tag: str) -> int:
     """One process of a phase 17 world: bootstrap (``init_distributed`` at
     the world's address), the comms self test and every verb against numpy
@@ -4474,10 +4651,14 @@ def procs_child(rank: int, world: int, work: str, backend: str, device: str, tag
     fold), its B5 ``ring_fold`` launches and its ``ring_onecard`` launches
     (B6 and B7 on one card; none here); then one more ring batch with
     each B5 fold held against ``hop_merge_reference`` on the card (launches
-    not counted). The NCCL world of one runs ``sharded_knn`` against
-    single-device brute force. Writes ``{tag}_rank{rank}.npz`` and prints
-    one JSON line."""
-    from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+    not counted); then the other sharded entry points (:func:`entry_cases`: the
+    distributed build full and CA, the query-sharded IVF-PQ and CAGRA
+    searches, tiered sharded serving under every merge mode, the
+    one-process fault), their ring launches counted apart. The NCCL world
+    of one runs ``sharded_knn`` against single-device brute force, the
+    build, and the query-sharded searches against the single-device
+    searches. Writes ``{tag}_rank{rank}.npz`` and prints one JSON line."""
+    from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
     from raft_tpu_torch.ops import ring_topk as rt
     from raft_tpu_torch.parallel import (bootstrap, sharded_ivf_flat_search,
                                          sharded_ivf_pq_lists_search, sharded_knn)
@@ -4495,7 +4676,8 @@ def procs_child(rank: int, world: int, work: str, backend: str, device: str, tag
            "init_s": time.perf_counter() - t0, "self_test": bootstrap.run_comms_self_test(mesh),
            "verbs": procs_verbs(mesh, world)}
     k, qb = spec["k"], spec["qb"]
-    Q = torch.from_numpy(np.load(os.path.join(work, "Q.npy"))).to(dev)
+    Qn = np.load(os.path.join(work, "Q.npy"))
+    Q = torch.from_numpy(Qn).to(dev)
     X = torch.from_numpy(np.load(os.path.join(work, "X.npy"))).to(dev)
     arrays = {}
     if spec["searches"][tag]:
@@ -4585,6 +4767,20 @@ def procs_child(rank: int, world: int, work: str, backend: str, device: str, tag
         out["folds_checked"] = len(checked)
         out["fold_shapes"] = sorted({s for s, _ in checked})
         out["folds_equal"] = all(s for _, s in checked)
+        # the other sharded entry points, their launches apart
+        cg = cagra.load_path(os.path.join(work, "cagra.idx"), device=dev)
+        for f in counted:
+            f.launches = 0
+        rt.fused_ring_topk.stage_launches = rt.fused_scan_ring_topk.stage_launches = 0
+        rt.fused_ring_topk.hop_s = 0.0
+        ep, info = entry_cases(mesh, "data", flat, pq, cg, X, Qn, spec)
+        torch.cuda.synchronize()
+        info["launches"] = {f.__name__: f.launches for f in counted}
+        info["launches"]["ring_stage"] = rt.fused_ring_topk.stage_launches
+        info["launches"]["scan_ring_stage"] = rt.fused_scan_ring_topk.stage_launches
+        info["hop_host_s"] = rt.fused_ring_topk.hop_s
+        out["entry"] = info
+        arrays.update({"entry_" + name: a for name, a in ep.items()})
     else:  # the NCCL world of one: sharded kNN against single-device brute force
         qc = Q[:spec["knn_queries"]]
         d, i = sharded_knn(mesh, X, qc, k, metric="sqeuclidean")
@@ -4597,6 +4793,22 @@ def procs_child(rank: int, world: int, work: str, backend: str, device: str, tag
         out["knn_ids_equal"] = float((i == bi).float().mean())
         out["knn_values_close"] = bool(torch.allclose(d, bd, rtol=1e-5, atol=1e-5))
         out["knn_value_bits_equal"] = bool(torch.equal(d.view(torch.int32), bd.view(torch.int32)))
+        # the build (against the parent's mesh of one shard) and the
+        # query-sharded searches against the single-device searches
+        pq = ivf_pq.load_path(os.path.join(work, "pq.idx"), device=dev)
+        cg = cagra.load_path(os.path.join(work, "cagra.idx"), device=dev)
+        ep, info = entry_cases(mesh, "data", None, pq, cg, X, Qn, spec, modes=("full",),
+                             parts=("build", "query"))
+        qt = Q[:spec["qs_queries"]]
+        single = {"qs_pq": ivf_pq.search(pq, qt, k, ivf_pq.IvfPqSearchParams(
+                      n_probes=spec["pq_probes"]), mode="scan"),
+                  "qs_cagra": cagra.search(cg, qt, k, cagra.CagraSearchParams(**spec["cagra"]),
+                                           mode="xla")}
+        info["equal_to_single_device"] = {
+            name: bool(np.array_equal(ep[name + "_i"], i.cpu().numpy()) and np.array_equal(
+                ep[name + "_d"].view(np.int32), d.cpu().numpy().view(np.int32)))
+            for name, (d, i) in single.items()}
+        out["entry"] = info
     out["child_s"] = time.perf_counter() - t0
     np.savez(os.path.join(work, f"{tag}_rank{rank}.npz"), **arrays)
     bootstrap.shutdown()
@@ -4699,6 +4911,48 @@ def procs_check_world(card: str, tag: str, results, refs, gt_i) -> dict:
     return launches
 
 
+def jsonable(x):
+    """``x`` as it comes back from a child's JSON line (tuples as lists)."""
+    return json.loads(json.dumps(x))
+
+
+def entry_equal(what: str, arrays: dict, want: dict, prefix: str = "") -> None:
+    """Every array of ``want`` equal in ids and value bits to ``arrays``'s
+    (``prefix`` + its name)."""
+    for name, w in want.items():
+        g = arrays[prefix + name]
+        if g.shape != w.shape or g.view(np.int32).tobytes() != w.view(np.int32).tobytes():
+            raise AssertionError(f"phase 17 {what}: {name} differs from the single-process mesh "
+                                 f"({int((g != w).sum()) if g.shape == w.shape else g.shape} "
+                                 "entries)")
+
+
+def entry_check(card: str, tag: str, n: int, info: dict, arrays: dict, ref, prefix: str,
+              rank=None) -> None:
+    """One process's (or the 2-D mesh's) results of the other sharded
+    entry points against the single-process mesh's ``ref = (arrays,
+    info)``: every build field's digest, every search and served answer in
+    ids and value bits, the agreed degraded coverage; prints its lines."""
+    ref_arrays, ref_info = ref
+    who = f"{tag} rank {rank}" if rank is not None else tag
+    for mode, digest in info["digest"].items():
+        diff = [f for f in PQ_FIELDS if digest[f] != ref_info["digest"][mode][f]]
+        if diff:
+            raise AssertionError(f"phase 17 {who}: the {mode} build differs in {diff}")
+    entry_equal(who, arrays, ref_arrays, prefix)
+    for key in [k_ for k_ in ref_info if k_.startswith(("tiered_cov", "down_cov"))]:
+        if jsonable(info[key]) != jsonable(ref_info[key]):
+            raise AssertionError(f"phase 17 {who}: {key} {info[key]} against {ref_info[key]}")
+    if "down_cov" in info and n > 1 and jsonable(info["down_cov"]) != [[1 - 1 / n, [1]]]:
+        raise AssertionError(f"phase 17 {who}: shard 1 down in one process gave {info['down_cov']}")
+    emit(card, phase="procs", metric="entry_points", world=tag, rank=rank, build_s=info["build_s"],
+         build_verb_host_s=info["build_verb_host_s"], build_verb_calls=info["build_verb_calls"],
+         builds_equal=sorted(info["digest"]), seconds=info["s"],
+         tiered_algo=info.get("tiered_algo"), down_coverage=info.get("down_cov"),
+         fault_installed_here=info.get("fault_installed_here"), launches=info.get("launches"),
+         hop_host_s=info.get("hop_host_s"), equal=True)
+
+
 def procs_refs(mesh, index, pq_index, X_card, Qt, spec) -> dict:
     """The single-process answers phase 17's worlds must give: each search
     over ``mesh`` (gather: ring and fused_ring are bit-equal to it, phase 7)
@@ -4742,14 +4996,18 @@ def procs_refs(mesh, index, pq_index, X_card, Qt, spec) -> dict:
     return refs
 
 
-def procs_phase(card: str, index, pq_index, X, X_card, Q, gt_i, k: int) -> dict:
+def procs_phase(card: str, index, pq_index, cg, X, X_card, Q, gt_i, k: int, sizes) -> dict:
     """Phase 17: multi-process meshes on the card (see the module
-    docstring). Returns the B5, B6, B7 and staging launches of each world's
-    processes."""
+    docstring). Returns ``{"launches": the B5, B6, B7 and staging launches
+    of each world's processes over the lists-sharded searches, "entry": the
+    same over the other sharded entry points' paths, "onecard_2d": the 2-D
+    mesh's ring_onecard launches, "ca_digest": the CA build's digests on
+    make_mesh(["cuda:0"] * 4)}``."""
     import shutil
     import tempfile
 
-    from raft_tpu_torch.neighbors import ivf_flat, ivf_pq
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import ring_topk as rt
     from raft_tpu_torch.parallel import make_mesh
 
     t_phase = time.perf_counter()
@@ -4760,51 +5018,100 @@ def procs_phase(card: str, index, pq_index, X, X_card, Q, gt_i, k: int) -> dict:
     if n_cards >= 2:
         m = min(4, n_cards)
         worlds.append((f"nccl{m}", m, "nccl", [f"cuda:{i}" for i in range(m)]))
+    out = {"launches": {}, "entry": {}}
     try:
         t0 = time.perf_counter()
         ivf_flat.save_path(index, os.path.join(work, "flat.idx"))
         ivf_pq.save_path(pq_index, os.path.join(work, "pq.idx"))
+        cagra.save_path(cg, os.path.join(work, "cagra.idx"))
         np.save(os.path.join(work, "X.npy"), X)
         np.save(os.path.join(work, "Q.npy"), Q)
         spec = {"k": k, "qb": 1024, "n_probes": 20, "pq_probes": 30, "pq_queries": 2048,
                 "knn_queries": 1024, "timeout_s": 120.0,
+                "build": {"n_lists": 1024, "pq_dim": 64, "pq_bits": 8}, "qs_queries": 4096,
+                "cagra": {"itopk_size": 128, "search_width": 8, "dedup": "post",
+                          "init_sample": SERVE_INIT_SAMPLE},
+                "tiered_sizes": [int(m) for m in sizes_to(sizes, 2048)],
+                "down_sizes": [int(m) for m in sizes_to(sizes, 1024)],
                 "address": {tag: f"127.0.0.1:{_free_port()}" for tag, *_ in worlds},
                 "searches": {tag: backend == "gloo" or n > 1 for tag, n, backend, _ in worlds}}
         with open(os.path.join(work, "spec.json"), "w") as f:
             json.dump(spec, f)
         emit(card, phase="procs", metric="save_s", value=time.perf_counter() - t0,
-             index_bytes=os.path.getsize(os.path.join(work, "flat.idx")))
+             index_bytes=os.path.getsize(os.path.join(work, "flat.idx")),
+             cagra_bytes=os.path.getsize(os.path.join(work, "cagra.idx")))
         Qt = torch.from_numpy(Q).cuda()
-        launches = {}
+        entry_refs = {}
         for tag, n, backend, devices in worlds:
             t0 = time.perf_counter()
-            refs = (procs_refs(make_mesh(devices), index, pq_index, X_card, Qt, spec)
+            ref_mesh = make_mesh(devices)
+            refs = (procs_refs(ref_mesh, index, pq_index, X_card, Qt, spec)
                     if spec["searches"][tag] else None)
+            entry_refs[n] = (entry_cases(ref_mesh, "data", index, pq_index, cg, X_card, Q, spec)
+                          if spec["searches"][tag] else
+                          entry_cases(ref_mesh, "data", index, pq_index, cg, X_card, Q, spec,
+                                    modes=("full",), parts=("build",)))
             refs_s = time.perf_counter() - t0
             torch.cuda.empty_cache()  # the children share the card: hand back its cached blocks
             t0 = time.perf_counter()
-            results = procs_world(card, work, tag, n, backend, devices, 240.0)
+            results = procs_world(card, work, tag, n, backend, devices, 420.0)
             world_s = time.perf_counter() - t0
             if refs is not None:
-                launches[tag] = procs_check_world(card, tag, results, refs, gt_i)
+                out["launches"][tag] = procs_check_world(card, tag, results, refs, gt_i)
+                out["entry"][tag] = {}
+                for res_out, arrays in results:
+                    r = res_out["rank"]
+                    entry_check(card, tag, n, res_out["entry"], arrays, entry_refs[n], "entry_",
+                                rank=r)
+                    lc = res_out["entry"]["launches"]
+                    if (lc["ring_stage"] <= 0 or lc["hop_merge"] <= 0 or lc["fused_ring_topk"] != 0
+                            or lc["fused_scan_ring_topk"] != 0):
+                        raise AssertionError(f"phase 17 {tag} rank {r}: the other entry points' "
+                                             f"launches {lc}")
+                    out["entry"][tag][r] = lc
             else:
-                out = results[0][0]
-                if (not out["self_test"] or not all(out["verbs"].values())
-                        or out["knn_ids_equal"] != 1.0 or not out["knn_values_close"]):
-                    raise AssertionError(f"phase 17 {tag}: {out}")
-                emit(card, phase="procs", metric="nccl_world_of_one", mesh=out["mesh"],
-                     self_test=out["self_test"], verbs=out["verbs"],
-                     knn_ids_equal=out["knn_ids_equal"],
-                     knn_value_bits_equal=out["knn_value_bits_equal"], child_s=out["child_s"])
+                res_out = results[0][0]
+                info = res_out["entry"]
+                if (not res_out["self_test"] or not all(res_out["verbs"].values())
+                        or res_out["knn_ids_equal"] != 1.0 or not res_out["knn_values_close"]
+                        or not all(info["equal_to_single_device"].values())):
+                    raise AssertionError(f"phase 17 {tag}: {res_out}")
+                entry_check(card, tag, n, info, {}, entry_refs[n], "")
+                emit(card, phase="procs", metric="nccl_world_of_one", mesh=res_out["mesh"],
+                     self_test=res_out["self_test"], verbs=res_out["verbs"],
+                     knn_ids_equal=res_out["knn_ids_equal"],
+                     knn_value_bits_equal=res_out["knn_value_bits_equal"],
+                     query_sharded_equal_to_single_device=info["equal_to_single_device"],
+                     child_s=res_out["child_s"])
             emit(card, phase="procs", metric="world_s", world=tag, processes=n, backend=backend,
-                 value=world_s, reference_s=refs_s)
+                 value=world_s, reference_s=refs_s,
+                 reference_build_s=entry_refs[n][1]["build_s"],
+                 reference_build_verb_host_s=entry_refs[n][1]["build_verb_host_s"],
+                 reference_seconds=entry_refs[n][1]["s"])
         if n_cards < 2:
             emit(card, phase="procs", metric="nccl_across_cards",
                  value="waits for a machine with several cards", cards=n_cards)
+        # (d) the five entry points on a 2 x 2 mesh along "cols", against the
+        # one-axis mesh of two shards; one ring_onecard launch a group a ring
+        t0 = time.perf_counter()
+        mesh2d = make_mesh(["cuda:0"] * 4, shape=(2, 2), axis_names=("rows", "cols"))
+        before = rt.fused_ring_topk.launches + rt.fused_scan_ring_topk.launches
+        arrays2d, info2d = entry_cases(mesh2d, "cols", index, pq_index, cg, X_card, Q, spec,
+                                     modes=("ca",))
+        out["onecard_2d"] = rt.fused_ring_topk.launches + rt.fused_scan_ring_topk.launches - before
+        info2d["launches"] = {"ring_onecard": out["onecard_2d"]}
+        entry_check(card, "2x2_cols", 2, info2d, arrays2d, entry_refs[2], "")
+        if out["onecard_2d"] <= 0 or out["onecard_2d"] % 2:
+            raise AssertionError(f"phase 17 (d): {out['onecard_2d']} ring_onecard launches on the "
+                                 "2 x 2 mesh (one a group a ring expected)")
+        emit(card, phase="procs", metric="mesh_2x2", axis="cols",
+             against="make_mesh(['cuda:0'] * 2)", equal=True,
+             ring_onecard_launches=out["onecard_2d"], value=time.perf_counter() - t0)
+        out["ca_digest"] = entry_refs[4][1]["digest"]["ca"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit(card, phase="procs", metric="phase_s", value=time.perf_counter() - t_phase)
-    return launches
+    return out
 
 
 #: the parts ``--phases`` runs alone
@@ -4839,7 +5146,8 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
     index built as phase 6 builds it; ``data``: phase 15 (:func:`data_phase`)
     on phase 3's rows; ``graph``: phase 16 (:func:`graph_phase`) on its own
     data; ``procs``: phase 17 (:func:`procs_phase`) on phase 3's data and the
-    indexes of phases 3 and 4. Each builds the kernels it launches first. ``tree`` is the tree whose
+    indexes of phases 3, 4 and 6. Each builds the kernels it launches first.
+    ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
     from raft_tpu_torch.core.resources import Resources
@@ -5081,18 +5389,29 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
     if "graph" in parts:
         graph_phase(card, seed)
     if "procs" in parts:
-        _, build_s, log = rt.build_kernel(True)
-        emit(card, phase="build", kernel="ring_topk", build_s=build_s)
+        from raft_tpu_torch.neighbors import cagra
+        from raft_tpu_torch.ops import pq_scan
+
+        mods = {"fused_pq_topk": pq_scan, "ring_topk": rt}  # B2: the CAGRA build's self-search
+        with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
+            builds = {name: ex.submit(mod.build_kernel, True) for name, mod in mods.items()}
+            for name, f in builds.items():
+                emit(card, phase="build", kernel=name, build_s=f.result()[1])
         res = Resources(device="cuda", seed=seed)
         rng = np.random.default_rng(seed)
         gen = Clustered(rng, 128, 512)
         gen.sample(65536), gen.sample(512)  # phase 2's draws: phase 3's data follow them
         gen = Clustered(rng, 128, 4096)
         X, Q = gen.sample(1_000_000), gen.sample(10_000)
+        sizes = request_sizes(rng, Q.shape[0])
         _, gt_i = brute_force.knn(X, Q, 10, metric="sqeuclidean", res=res)
+        X_card = torch.from_numpy(X).cuda()
         index = ivf_flat.build(X, ivf_flat.IvfFlatIndexParams(n_lists=1024), res=res)
         pq_index = ivf_pq.build(X, ivf_pq.IvfPqIndexParams(n_lists=1024), res=res)
-        procs_phase(card, index, pq_index, X, torch.from_numpy(X).cuda(), Q, gt_i, 10)
+        cg = cagra.build(X_card, cagra.CagraIndexParams(intermediate_graph_degree=32,
+                                                        graph_degree=16, build_algo="ivf_pq"),
+                         res=res, pq_index=pq_index)
+        procs_phase(card, index, pq_index, cg, X, X_card, Q, gt_i, 10, sizes)
     if max_err:
         emit(card, phase="kernel_vs_plain", metric="max_abs_err", value=max_err)
 
@@ -5707,7 +6026,7 @@ def main() -> int:
          **memory())
 
     # ---- phase 17: multi-process meshes (while B3 compiles: it launches no B3) --
-    procs = procs_phase(card, index, pq_index, X, X_card, Q, gt_i, k)
+    procs = procs_phase(card, index, pq_index, cg, X, X_card, Q, gt_i, k, sizes)
     emit(card, phase="procs", metric="memory", **memory())
 
     # ---- phase 5: RaBitQ, after phase 2's B3 checks (phases 6, 7, 9 and 17 ran
@@ -5732,7 +6051,8 @@ def main() -> int:
     emit(card, phase="tiered", metric="memory", **memory())
 
     # ---- phase 11: the distributed build, query-sharded and tiered sharded --
-    multi = multi_phase(card, res, X, X_card, Q, gt_i, k, sizes, pq_index, cg, rq_index)
+    multi = multi_phase(card, res, X, X_card, Q, gt_i, k, sizes, pq_index, cg, rq_index,
+                        ca_digest=procs["ca_digest"])
     emit(card, phase="multi", metric="memory", **memory())
 
     # ---- phase 12: replicated serving and the rest of obs --------------------
@@ -5787,15 +6107,20 @@ def main() -> int:
             rows[-1]["folds_inside_rings"] = folds
         # phase 17, by world and rank: the process engine's B5 ring_fold
         # launches, its ring_stage launches (B6's host schedule) and those of
-        # them that fold 80-wide tiles (B7's scan fold); ring_onecard never
-        # runs across processes
+        # them that fold 80-wide tiles (B7's scan fold), over the
+        # lists-sharded searches and apart over the other sharded entry
+        # points; ring_onecard never runs across processes, and runs once a
+        # group a ring on the 2 x 2 mesh
         for name_, key, lane in (("hop_merge", "launches_procs", "hop_merge"),
                                  ("fused_ring_topk", "ring_stage_launches_procs", "ring_stage"),
                                  ("fused_scan_ring_topk", "scan_stage_launches_procs",
                                   "scan_ring_stage")):
             if name == name_:
-                rows[-1][key] = {tag: {r: lc[lane] for r, lc in ranks.items()}
-                                 for tag, ranks in procs.items()}
+                for part, suffix in (("launches", ""), ("entry", "_entry")):
+                    rows[-1][key + suffix] = {tag: {r: lc[lane] for r, lc in ranks.items()}
+                                              for tag, ranks in procs[part].items()}
+        if name == "fused_ring_topk":
+            rows[-1]["launches_procs_2x2"] = procs["onecard_2d"]
         if name == "fused_ring_topk":  # phase 9's backlog with shard 2 down
             rows[-1]["launches_degraded"] = robust["b6_launches"]
         if name == "cagra_fused_search":  # phase 14's hnsw searches launch B4 too

@@ -156,6 +156,18 @@ class Mesh:
         for t in tensors:
             t.record_stream(torch.cuda.current_stream(t.device))
 
+    # -- agreement between the processes of a mesh ------------------------------
+
+    def agreed(self, flags: Sequence[bool]) -> Tuple[bool, ...]:
+        """Each flag ANDed over every process of the mesh: on one controller
+        the flags as they are (a process mesh gathers them)."""
+        return tuple(bool(f) for f in flags)
+
+    def from_first(self, x: torch.Tensor) -> torch.Tensor:
+        """The process of global rank 0's ``x`` (this process's on one
+        controller), on ``x``'s device."""
+        return x
+
     # -- the groups along an axis ----------------------------------------------
 
     def along(self, axis: Optional[str] = None) -> List[Tuple["Mesh", Tuple[int, ...]]]:
@@ -314,15 +326,6 @@ def comm_split(mesh: Mesh, axis: str) -> dict:
     name and size, which the verbs take."""
     expects(axis in mesh.axis_names, "axis %s not in mesh axes %s", axis, mesh.axis_names)
     return {"axis": axis, "size": mesh.shape[axis]}
-
-
-def expect_one_axis_controller(mesh, what: str) -> None:
-    """Raise ``LogicError`` unless ``mesh`` is a one-axis single-controller
-    mesh (the entry points not yet ported to process meshes or to meshes of
-    several axes)."""
-    kind = ("a process mesh" if mesh.is_process else
-            f"a mesh of {len(mesh.axis_names)} axes" if len(mesh.axis_names) > 1 else "")
-    expects(not kind, "%s runs on a one-axis single-controller mesh only, not on %s", what, kind)
 
 
 # -- placement ------------------------------------------------------------------

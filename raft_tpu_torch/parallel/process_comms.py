@@ -152,6 +152,30 @@ class ProcessMesh(comms.Mesh):
                 return fn()
         return fn()
 
+    # -- agreement between the processes -------------------------------------------
+
+    def agreed(self, flags: Sequence[bool]) -> Tuple[bool, ...]:
+        """Each flag ANDed over every process: one ``dist.all_gather`` of
+        every process's flags over the default group."""
+        t = torch.tensor([bool(f) for f in flags], dtype=torch.uint8,
+                         device=self.devices[0] if self.backend == "nccl" else _CPU)
+        out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        self._collective(lambda: dist.all_gather(out, t))
+        return tuple(bool(v) for v in torch.stack(out).min(dim=0).values.tolist())
+
+    def from_first(self, x: torch.Tensor) -> torch.Tensor:
+        """The process of global rank 0's ``x``: one ``dist.broadcast`` of
+        its bytes over the default group (every process passes a tensor of
+        the same shape and dtype), on ``x``'s device."""
+        owner = self.owners[0]
+        self.fork()
+        buf = (self._pack([(0, x)], 1) if owner == self.process else
+               self._empty_wire((1, x.numel() * x.element_size()), x))
+        self._collective(lambda: dist.broadcast(buf, src=owner))
+        got = self._unpack(0, buf[0], x)
+        self.join([got])
+        return got
+
     # -- the three transports ----------------------------------------------------------
 
     def _gathered(self, xs: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:

@@ -26,19 +26,28 @@ local shards' slices; the per-shard loops run over ``mesh.local_ranks``
 and every process returns the merged, replicated answer.
 
 Query-sharded search (:func:`sharded_ivf_pq_search`,
-:func:`sharded_cagra_search`): the index replicated, the queries split; each
-shard's rows are the single-device search of the same rows. These and the
-distributed build run on one-axis single-controller meshes only, and raise
-``LogicError`` on the other kinds.
+:func:`sharded_cagra_search`): the index replicated, the queries split along
+``axis`` into one block a coordinate (replicated over the other axes, JAX's
+``P(axis)``); each shard's rows are the single-device search of the same
+rows. On one controller the answer is the blocks in coordinate order on the
+first shard's device; on a process mesh every process returns the whole
+answer on its first device (one gather of the blocks along ``axis``).
 
-The distributed build (:func:`sharded_ivf_pq_build`): distributed Lloyd for
-the coarse centers and distributed codebook updates, their sums exchanged
-in full or by the communication-avoiding exchange (:func:`_ca_exchange`),
-then a replicated index.
+The distributed build (:func:`sharded_ivf_pq_build`): the rows split along
+``axis``, distributed Lloyd for the coarse centers and distributed codebook
+updates, their sums exchanged along ``axis`` in full or by the
+communication-avoiding exchange (:func:`_ca_exchange`), then an index
+replicated in every process (exact fixed-point sums added in rank order, so
+its bits do not depend on how the shards lie over axes or processes).
+Every entry point of this module takes both kinds of mesh and any number of
+axes.
 
 Differences from the JAX package: no fallback (a ring that fails raises;
 the JAX package re-runs it on gather); random CAGRA seeds come from a
-``torch.Generator`` a rank seeded from ``(seed, rank)``; the codebook step
+``torch.Generator`` a shard seeded from ``(seed, coordinate along axis)``;
+the build's draws are made by the process of global rank 0 and broadcast
+(the JAX package draws them from one key); ``comms.build.*`` count once a
+call in each process (the JAX package counts while it traces); the codebook step
 assigns in row blocks and sums by ``(subspace, code)`` instead of building a
 ``[rows, pq_dim, ksub]`` one-hot (the same codes and sums); the build's
 draws come from a ``torch.Generator``; a RaBitQ index is rejected by the
@@ -255,21 +264,36 @@ def sharded_ivf_pq_lists_search(mesh, index, queries, k: int,
 
 
 def _query_blocks(mesh, queries, axis: str):
-    """The queries on shard 0's device, cut into one equal row block a shard
-    (the JAX package's divisibility check and message)."""
+    """The queries on the first local shard's device, cut into one equal
+    row block a coordinate along ``axis`` (the JAX package's divisibility
+    check and message): one block a local shard."""
     n_shards = comms.comm_size(mesh, axis)
     queries = ser.as_tensor(queries, mesh.devices[0]).to(torch.float32)
     nq = queries.shape[0]
     expects(nq % n_shards == 0, "n_queries %d not divisible by %d shards", nq, n_shards)
-    return comms.row_sharded(mesh, queries)
+    return comms.row_sharded(mesh, queries, axis)
 
 
-def _assemble(mesh, vs, is_) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each shard's row block of the results, in rank order, as one pair on
-    shard 0's device (the JAX package's query-sharded output)."""
+def _assemble(mesh, vs, is_, axis: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The row blocks of the results in coordinate order along ``axis`` as
+    one pair on the first local shard's device (the JAX package's
+    query-sharded output). One controller: the blocks of the first group
+    along ``axis``; a process mesh: one gather of every local shard's
+    ``(values, ids)`` block along ``axis`` (int32 lanes, so the bits
+    travel), every process keeping the whole answer."""
+    if mesh.is_process:
+        packed = []
+        for j, (v, i) in enumerate(zip(vs, is_)):
+            with mesh.on(j):
+                packed.append(torch.stack([v.view(torch.int32), i]))
+        whole = comms._allgather(mesh, packed, axis=axis)[0]  # [n, 2, nq / n, k]
+        k = whole.shape[-1]
+        return (whole[:, 0].reshape(-1, k).view(torch.float32), whole[:, 1].reshape(-1, k))
+    _, slots = mesh.along(axis)[0]
     mesh.join(vs + is_)
     dev = mesh.devices[0]
-    return (torch.cat([v.to(dev) for v in vs], dim=0), torch.cat([i.to(dev) for i in is_], dim=0))
+    return (torch.cat([vs[s].to(dev) for s in slots], dim=0),
+            torch.cat([is_[s].to(dev) for s in slots], dim=0))
 
 
 def sharded_ivf_pq_search(mesh, index, queries, k: int,
@@ -284,7 +308,6 @@ def sharded_ivf_pq_search(mesh, index, queries, k: int,
     device, each block the single-device ``search(mode="scan")`` of the same
     rows (no refine). A RaBitQ index is rejected, as by
     :func:`sharded_ivf_pq_lists_search`."""
-    comms.expect_one_axis_controller(mesh, "sharded_ivf_pq_search")
     if params is None:
         params = ivf_pq_mod.IvfPqSearchParams(**kwargs)
     expects(not index.rabitq, "query-sharded PQ search does not take a RaBitQ index: the JAX "
@@ -301,21 +324,22 @@ def sharded_ivf_pq_search(mesh, index, queries, k: int,
                        layout="replicated")
     mesh.fork()
     vs, is_ = [], []
-    for r in range(mesh.size):
-        with mesh.on(r):
+    for j in range(len(mesh.devices)):
+        with mesh.on(j):
             v, i = ivf_pq_mod._ivf_pq_scan_impl(
-                parts["centers"][r], parts["rotation"][r], parts["pq_centers"][r],
-                parts["codes"][r], parts["ids"][r], parts["sqn"][r], qs[r], None, k=k,
+                parts["centers"][j], parts["rotation"][j], parts["pq_centers"][j],
+                parts["codes"][j], parts["ids"][j], parts["sqn"][j], qs[j], None, k=k,
                 n_probes=n_probes, metric=index.metric, per_cluster=per_cluster, chunk_lists=g,
                 bf16=bf16)
             vs.append(v)
             is_.append(i)
-    return _assemble(mesh, vs, is_)
+    return _assemble(mesh, vs, is_, axis)
 
 
 def _rank_generator(seed: int, rank: int, device) -> torch.Generator:
-    """Rank ``rank``'s generator of random CAGRA seeds, seeded from ``(seed,
-    rank)`` (the JAX package folds the rank into its key)."""
+    """The generator of random CAGRA seeds of the shards at coordinate
+    ``rank`` along the search's axis, seeded from ``(seed, rank)`` (the JAX
+    package folds ``lax.axis_index(axis)`` into its key)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(np.random.SeedSequence([int(seed), int(rank)]).generate_state(1)[0]))
     return gen
@@ -329,13 +353,14 @@ def sharded_cagra_search(mesh, index, queries, k: int,
     and dataset (or the VPQ arrays) replicated (``sharded_ann.py:234-311``):
     shard ``r`` runs the unfused beam loop (``cagra._cagra_search_impl``,
     the ``xla`` path, as the JAX package does) over its block of the
-    queries. With ``init_sample > 0`` every rank seeds from the strided
+    queries. With ``init_sample > 0`` every shard seeds from the strided
     sample, so each block is the single-device ``search(mode="xla")`` of the
-    same rows; with ``init_sample == 0`` rank ``r`` draws its random seeds
-    from a ``torch.Generator`` seeded from ``(params.seed, r)``. The number
-    of queries must divide by the number of shards. Returns ``(distances,
-    indices)`` on the first shard's device."""
-    comms.expect_one_axis_controller(mesh, "sharded_cagra_search")
+    same rows; with ``init_sample == 0`` the shard at coordinate ``a`` along
+    ``axis`` draws its random seeds from a ``torch.Generator`` seeded from
+    ``(params.seed, a)``, so shards that differ only on another axis draw
+    the same. The number of queries must divide by the number of shards
+    along ``axis``. Returns ``(distances, indices)`` on the first local
+    shard's device."""
     if params is None:
         params = cagra_mod.CagraSearchParams(**kwargs)
     qs = _query_blocks(mesh, queries, axis)
@@ -351,24 +376,24 @@ def sharded_cagra_search(mesh, index, queries, k: int,
     parts = _shards_of(index, mesh, axis, rep, {}, layout="replicated")
     mesh.fork()
     vs, is_ = [], []
-    for r in range(mesh.size):
-        with mesh.on(r):
-            dev = mesh.devices[r]
+    for j, r in enumerate(mesh.local_ranks):
+        with mesh.on(j):
+            dev = mesh.devices[j]
             if params.init_sample > 0:
                 init_ids = cagra_mod.strided_seed_ids(index.size, params.init_sample, dev)
             else:
-                init_ids = torch.randint(0, index.size, (qs[r].shape[0], n_init),
-                                         generator=_rank_generator(params.seed, r, dev),
+                gen = _rank_generator(params.seed, mesh.coord(r, axis), dev)
+                init_ids = torch.randint(0, index.size, (qs[j].shape[0], n_init), generator=gen,
                                          device=dev, dtype=torch.int32)
-            vpq_arrays = (tuple(parts[n][r] for n in ("vq_centers", "vq_labels", "pq_centers",
+            vpq_arrays = (tuple(parts[n][j] for n in ("vq_centers", "vq_labels", "pq_centers",
                                                       "codes")) if use_vpq else None)
             v, i = cagra_mod._cagra_search_impl(
-                None if use_vpq else parts["dataset"][r], parts["sqnorms"][r], parts["graph"][r],
-                qs[r], init_ids, None, vpq_arrays, k=k, itopk=itopk, width=width, iters=iters,
+                None if use_vpq else parts["dataset"][j], parts["sqnorms"][j], parts["graph"][j],
+                qs[j], init_ids, None, vpq_arrays, k=k, itopk=itopk, width=width, iters=iters,
                 metric=index.metric, has_filter=False, use_vpq=use_vpq)
             vs.append(v)
             is_.append(i)
-    return _assemble(mesh, vs, is_)
+    return _assemble(mesh, vs, is_, axis)
 
 
 # -- the distributed IVF-PQ build -----------------------------------------------------
@@ -402,39 +427,40 @@ def _ca_cap(n_rows: int, ca_cap) -> int:
     return ca_exchange_cap(n_rows, ca_cap)
 
 
-def _note_build_comms(mesh, phase: str, payload_bytes: float, verb: str = "allreduce",
-                      launches: int = 1) -> None:
+def _note_build_comms(mesh, phase: str, payload_bytes: float, axis: str,
+                      verb: str = "allreduce", launches: int = 1) -> None:
     """The build's comms accounting: ``comms.build.launches`` and the wire
-    model's bytes (``comms.build.bytes``), labelled with the build
-    ``phase``."""
+    model's bytes at the size of ``axis`` (``comms.build.bytes``), labelled
+    with the build ``phase``; once a call in each process."""
     if not obs.is_enabled():
         return
     obs.inc("comms.build.launches", float(launches), phase=phase)
-    obs.inc("comms.build.bytes", wire_bytes(verb, payload_bytes, mesh.size), phase=phase)
+    obs.inc("comms.build.bytes", wire_bytes(verb, payload_bytes, comms.comm_size(mesh, axis)),
+            phase=phase)
 
 
-def _ca_exchange(mesh, rows_local, changed_local, gsums, cap: int, phase: str):
-    """The communication-avoiding accumulator exchange: allreduce each
-    shard's per-row changed counts, select the ``cap`` rows of most global
-    churn (``lax.top_k``'s order: ties to the lower row), allreduce only
-    those rows' fresh partials and patch them into the carried global
-    accumulator. A row whose assignments changed on no shard has the same
-    partials as before (exact fixed-point sums of the same rows), so under
-    the cap the result is the full exchange's bit for bit."""
-    gchanged = comms.allreduce(mesh, changed_local)
+def _ca_exchange(mesh, rows_local, changed_local, gsums, cap: int, phase: str, axis: str):
+    """The communication-avoiding accumulator exchange along ``axis``:
+    allreduce each shard's per-row changed counts, select the ``cap`` rows
+    of most global churn (``lax.top_k``'s order: ties to the lower row),
+    allreduce only those rows' fresh partials and patch them into the
+    carried global accumulator. A row whose assignments changed on no shard
+    has the same partials as before (exact fixed-point sums of the same
+    rows), so under the cap the result is the full exchange's bit for bit."""
+    gchanged = comms.allreduce(mesh, changed_local, axis=axis)
     sel, picked = [], []
-    for r in range(mesh.size):
-        with mesh.on(r):
-            sel.append(select_k(gchanged[r][None, :], cap, select_min=False)[1][0].to(torch.int64))
-            picked.append(rows_local[r][sel[r]])
-    block = comms.allreduce(mesh, picked)
-    _note_build_comms(mesh, phase, changed_local[0].numel() * 4 + block[0].numel() * 4,
+    for j in range(len(mesh.devices)):
+        with mesh.on(j):
+            sel.append(select_k(gchanged[j][None, :], cap, select_min=False)[1][0].to(torch.int64))
+            picked.append(rows_local[j][sel[j]])
+    block = comms.allreduce(mesh, picked, axis=axis)
+    _note_build_comms(mesh, phase, changed_local[0].numel() * 4 + block[0].numel() * 4, axis,
                       launches=2)
     out = []
-    for r in range(mesh.size):
-        with mesh.on(r):
-            g = gsums[r].clone()
-            g[sel[r]] = block[r]
+    for j in range(len(mesh.devices)):
+        with mesh.on(j):
+            g = gsums[j].clone()
+            g[sel[j]] = block[j]
             out.append(g)
     return out
 
@@ -446,83 +472,74 @@ def _means(packed, old):
     return torch.where(gc > 0, gs / torch.clamp(gc, min=1e-9), old)
 
 
+def _each(mesh, fn, *per_shard) -> list:
+    """``fn(*args)`` on each local shard inside ``mesh.on``, the args
+    that shard's entries of ``per_shard``."""
+    out = []
+    for j in range(len(mesh.devices)):
+        with mesh.on(j):
+            out.append(fn(*(a[j] for a in per_shard)))
+    return out
+
+
 def dist_lloyd_step(mesh, centers, x_local, n_lists: int, axis: str = comms.DEFAULT_AXIS,
                     caches=None, fuse_comms: bool = True, comm_mode: str = "full", carry=None,
                     ca_cap=None):
     """One distributed Lloyd iteration over per-shard lists
-    (``sharded_ann.py:500-571``): each shard assigns its rows
+    (``sharded_ann.py:500-571``), one tensor a local shard, the rows split
+    along ``axis``: each shard assigns its rows
     (``kmeans.flash_min_cluster_and_distance``, with ``caches`` from
     ``kmeans.flash_norm_cache`` kept across iterations) and sums them by
     label (exact fixed-point sums, the same bits in any order); the
     ``[n_lists, d]`` sums and ``[n_lists]`` counts ride one packed
-    allreduce (``fuse_comms=False``: two). Returns ``(centers, labels)``,
-    one tensor a shard each.
+    allreduce along ``axis`` (``fuse_comms=False``: two). Returns
+    ``(centers, labels)``, one tensor a local shard each.
 
     ``comm_mode="ca"`` carries ``(labels, packed global sums)`` across
     iterations and exchanges only the ``ca_cap`` most-churned lists
     (:func:`_ca_exchange`); it returns ``(centers, labels, carry)``, and
     ``carry=None`` (the first iteration) pays one full exchange."""
-    comms.expect_one_axis_controller(mesh, "dist_lloyd_step")
     labs, rows = [], []
-    for r in range(mesh.size):
-        with mesh.on(r):
+    for j in range(len(mesh.devices)):
+        with mesh.on(j):
             lab, _ = flash_min_cluster_and_distance(
-                x_local[r], centers[r], metric=DistanceType.L2Expanded,
-                cache=caches[r] if caches is not None else None)
+                x_local[j], centers[j], metric=DistanceType.L2Expanded,
+                cache=caches[j] if caches is not None else None)
             ones = torch.ones(lab.shape, dtype=torch.float32, device=lab.device)
             labs.append(lab)
-            rows.append((segment_sum(x_local[r], lab, n_lists), segment_sum(ones, lab, n_lists)))
+            rows.append((segment_sum(x_local[j], lab, n_lists), segment_sum(ones, lab, n_lists)))
     if comm_mode == "ca":
-        local = []
-        for r, (sums, cnts) in enumerate(rows):
-            with mesh.on(r):
-                local.append(torch.cat([sums, cnts[:, None]], dim=1))
+        local = _each(mesh, lambda r: torch.cat([r[0], r[1][:, None]], dim=1), rows)
         if carry is None:
-            packed = comms.allreduce(mesh, local)
-            _note_build_comms(mesh, "kmeans_full", local[0].numel() * 4)
+            packed = comms.allreduce(mesh, local, axis=axis)
+            _note_build_comms(mesh, "kmeans_full", local[0].numel() * 4, axis)
         else:
             prev_lab, gsums = carry
-            changed = []
-            for r in range(mesh.size):
-                with mesh.on(r):
-                    moved = (labs[r] != prev_lab[r]).to(torch.float32)
-                    changed.append(segment_sum(moved, labs[r], n_lists)
-                                   + segment_sum(moved, prev_lab[r], n_lists))
-            packed = _ca_exchange(mesh, local, changed, gsums, _ca_cap(n_lists, ca_cap),
-                                  "kmeans_ca")
-        out = []
-        for r in range(mesh.size):
-            with mesh.on(r):
-                out.append(_means(packed[r], centers[r]))
-        return out, labs, (labs, packed)
-    packed = _exchange_sums(mesh, rows, fuse_comms, "kmeans_full")
-    out = []
-    for r in range(mesh.size):
-        with mesh.on(r):
-            out.append(_means(packed[r], centers[r]))
-    return out, labs
+
+            def changed(lab, prev):
+                moved = (lab != prev).to(torch.float32)
+                return segment_sum(moved, lab, n_lists) + segment_sum(moved, prev, n_lists)
+
+            packed = _ca_exchange(mesh, local, _each(mesh, changed, labs, prev_lab), gsums,
+                                  _ca_cap(n_lists, ca_cap), "kmeans_ca", axis)
+        return _each(mesh, _means, packed, centers), labs, (labs, packed)
+    packed = _exchange_sums(mesh, rows, fuse_comms, "kmeans_full", axis)
+    return _each(mesh, _means, packed, centers), labs
 
 
-def _exchange_sums(mesh, rows, fuse_comms: bool, phase: str):
-    """The full exchange of per-shard ``(sums [..., d], counts [...])``:
-    one packed allreduce, or (``fuse_comms=False``) one each; returns the
-    packed global ``[..., d + 1]`` per shard."""
+def _exchange_sums(mesh, rows, fuse_comms: bool, phase: str, axis: str):
+    """The full exchange of per-shard ``(sums [..., d], counts [...])``
+    along ``axis``: one packed allreduce, or (``fuse_comms=False``) one
+    each; returns the packed global ``[..., d + 1]`` per local shard."""
     if fuse_comms:
-        local = []
-        for r, (sums, cnts) in enumerate(rows):
-            with mesh.on(r):
-                local.append(torch.cat([sums, cnts[..., None]], dim=-1))
-        packed = comms.allreduce(mesh, local)
-        _note_build_comms(mesh, phase, packed[0].numel() * 4)
+        local = _each(mesh, lambda r: torch.cat([r[0], r[1][..., None]], dim=-1), rows)
+        packed = comms.allreduce(mesh, local, axis=axis)
+        _note_build_comms(mesh, phase, packed[0].numel() * 4, axis)
         return packed
-    sums = comms.allreduce(mesh, [s for s, _ in rows])
-    cnts = comms.allreduce(mesh, [c for _, c in rows])
-    _note_build_comms(mesh, phase, sums[0].numel() * 4 + cnts[0].numel() * 4, launches=2)
-    packed = []
-    for r in range(mesh.size):
-        with mesh.on(r):
-            packed.append(torch.cat([sums[r], cnts[r][..., None]], dim=-1))
-    return packed
+    sums = comms.allreduce(mesh, [s for s, _ in rows], axis=axis)
+    cnts = comms.allreduce(mesh, [c for _, c in rows], axis=axis)
+    _note_build_comms(mesh, phase, sums[0].numel() * 4 + cnts[0].numel() * 4, axis, launches=2)
+    return _each(mesh, lambda s_, c_: torch.cat([s_, c_[..., None]], dim=-1), sums, cnts)
 
 
 def _assign_codes(resid, books) -> torch.Tensor:
@@ -546,60 +563,53 @@ def dist_codebook_step(mesh, books, resid, ksub: int, axis: str = comms.DEFAULT_
                        fuse_comms: bool = True, comm_mode: str = "full", carry=None,
                        ca_cap=None):
     """One distributed per-subspace codebook update over per-shard lists
-    (``sharded_ann.py:574-632``): each shard assigns its residual
-    sub-vectors ``resid [n_local, pq_dim, pq_len]`` (:func:`_assign_codes`,
-    in row blocks) and sums them by ``(subspace, code)`` (exact fixed-point
-    sums over ``[n_local pq_dim, pq_len]``, 16 B a value of scratch); the
-    ``[pq_dim, ksub, pq_len]`` sums and ``[pq_dim, ksub]`` counts ride one
-    packed allreduce (``fuse_comms=False``: two). Returns the books, one a
-    shard. ``comm_mode="ca"`` exchanges the flattened ``[pq_dim ksub,
-    pq_len + 1]`` rows as :func:`dist_lloyd_step` does and returns
+    (``sharded_ann.py:574-632``), one tensor a local shard, the rows split
+    along ``axis``: each shard assigns its residual sub-vectors ``resid
+    [n_local, pq_dim, pq_len]`` (:func:`_assign_codes`, in row blocks) and
+    sums them by ``(subspace, code)`` (exact fixed-point sums over
+    ``[n_local pq_dim, pq_len]``, 16 B a value of scratch); the ``[pq_dim,
+    ksub, pq_len]`` sums and ``[pq_dim, ksub]`` counts ride one packed
+    allreduce along ``axis`` (``fuse_comms=False``: two). Returns the books,
+    one a local shard. ``comm_mode="ca"`` exchanges the flattened ``[pq_dim
+    ksub, pq_len + 1]`` rows as :func:`dist_lloyd_step` does and returns
     ``(books, carry)`` with ``carry = (codes, packed rows)``."""
-    comms.expect_one_axis_controller(mesh, "dist_codebook_step")
     pq_dim, _, pq_len = books[0].shape
     n_rows = pq_dim * ksub
+
+    def keyed(code):
+        return (torch.arange(pq_dim, device=code.device)[None, :] * ksub + code).reshape(-1)
+
     codes, keys, rows = [], [], []
-    for r in range(mesh.size):
-        with mesh.on(r):
-            code = _assign_codes(resid[r], books[r])
-            key = (torch.arange(pq_dim, device=code.device)[None, :] * ksub + code).reshape(-1)
+    for j in range(len(mesh.devices)):
+        with mesh.on(j):
+            code = _assign_codes(resid[j], books[j])
+            key = keyed(code)
             ones = torch.ones(key.shape, dtype=torch.float32, device=key.device)
             codes.append(code)
             keys.append(key)
-            rows.append((segment_sum(resid[r].reshape(-1, pq_len), key, n_rows)
+            rows.append((segment_sum(resid[j].reshape(-1, pq_len), key, n_rows)
                          .reshape(pq_dim, ksub, pq_len),
                          segment_sum(ones, key, n_rows).reshape(pq_dim, ksub)))
     if comm_mode == "ca":
-        local = []
-        for r, (sums, cnts) in enumerate(rows):
-            with mesh.on(r):
-                local.append(torch.cat([sums, cnts[..., None]], dim=-1).reshape(n_rows, pq_len + 1))
+        local = _each(mesh, lambda r: torch.cat([r[0], r[1][..., None]], dim=-1)
+                      .reshape(n_rows, pq_len + 1), rows)
         if carry is None:
-            packed = comms.allreduce(mesh, local)
-            _note_build_comms(mesh, "pq_codebook_full", local[0].numel() * 4)
+            packed = comms.allreduce(mesh, local, axis=axis)
+            _note_build_comms(mesh, "pq_codebook_full", local[0].numel() * 4, axis)
         else:
             prev_code, grows = carry
-            changed = []
-            for r in range(mesh.size):
-                with mesh.on(r):
-                    moved = (codes[r] != prev_code[r]).to(torch.float32).reshape(-1)
-                    prev_key = (torch.arange(pq_dim, device=moved.device)[None, :] * ksub
-                                + prev_code[r]).reshape(-1)
-                    changed.append(segment_sum(moved, keys[r], n_rows)
-                                   + segment_sum(moved, prev_key, n_rows))
-            packed = _ca_exchange(mesh, local, changed, grows, _ca_cap(n_rows, ca_cap),
-                                  "pq_codebook_ca")
-        out = []
-        for r in range(mesh.size):
-            with mesh.on(r):
-                out.append(_means(packed[r].reshape(pq_dim, ksub, pq_len + 1), books[r]))
+
+            def changed(code, key, prev):
+                moved = (code != prev).to(torch.float32).reshape(-1)
+                return segment_sum(moved, key, n_rows) + segment_sum(moved, keyed(prev), n_rows)
+
+            packed = _ca_exchange(mesh, local, _each(mesh, changed, codes, keys, prev_code),
+                                  grows, _ca_cap(n_rows, ca_cap), "pq_codebook_ca", axis)
+        out = _each(mesh, lambda p_, b: _means(p_.reshape(pq_dim, ksub, pq_len + 1), b), packed,
+                    books)
         return out, (codes, packed)
-    packed = _exchange_sums(mesh, rows, fuse_comms, "pq_codebook_full")
-    out = []
-    for r in range(mesh.size):
-        with mesh.on(r):
-            out.append(_means(packed[r], books[r]))
-    return out
+    packed = _exchange_sums(mesh, rows, fuse_comms, "pq_codebook_full", axis)
+    return _each(mesh, _means, packed, books)
 
 
 def sharded_ivf_pq_build(mesh, dataset, params: Optional["ivf_pq_mod.IvfPqIndexParams"] = None,
@@ -607,12 +617,14 @@ def sharded_ivf_pq_build(mesh, dataset, params: Optional["ivf_pq_mod.IvfPqIndexP
                          comm_mode: str = "auto", ca_cap=None, ca_warmup: int = 2,
                          **kwargs) -> "ivf_pq_mod.IvfPqIndex":
     """Distributed IVF-PQ build (``sharded_ann.py:651-797``): the rows split
-    over ``mesh``, the coarse centers trained by distributed Lloyd
-    (:func:`dist_lloyd_step`) and the per-subspace codebooks by
-    :func:`dist_codebook_step` (seeded from a strided sample of every
-    shard's residuals, one allgather), then every row encoded and packed
-    into a replicated index on the first shard's device (``PER_SUBSPACE``
-    books, one code a byte, no spatial list order).
+    along ``axis`` (replicated over a mesh's other axes), the coarse centers
+    trained by distributed Lloyd (:func:`dist_lloyd_step`) and the
+    per-subspace codebooks by :func:`dist_codebook_step` (seeded from a
+    strided sample of every shard's residuals, one allgather), then every
+    row encoded and packed into a replicated index on the first local
+    shard's device (``PER_SUBSPACE`` books, one code a byte, no spatial
+    list order). On a process mesh every process passes the whole dataset
+    and returns the same index.
 
     ``comm_mode``: ``"full"`` (the packed allreduce each iteration),
     ``"ca"`` (the changed-rows exchange after ``ca_warmup`` full ones; bit
@@ -620,8 +632,8 @@ def sharded_ivf_pq_build(mesh, dataset, params: Optional["ivf_pq_mod.IvfPqIndexP
     ``"auto"`` (:func:`_resolve_comm_mode`). The initial centers are
     ``n_lists`` rows drawn by ``torch.randperm`` from a ``torch.Generator``
     seeded with ``params.seed``, which then draws the rotation
-    (the JAX package draws both from its key)."""
-    comms.expect_one_axis_controller(mesh, "sharded_ivf_pq_build")
+    (the JAX package draws both from its key); on a process mesh the
+    process of global rank 0 draws them and broadcasts them."""
     if params is None:
         params = ivf_pq_mod.IvfPqIndexParams(**kwargs)
     dev = mesh.devices[0]
@@ -633,6 +645,7 @@ def sharded_ivf_pq_build(mesh, dataset, params: Optional["ivf_pq_mod.IvfPqIndexP
     gen = make_generator(params.seed, dev)
     init_centers = dataset[torch.randperm(n, generator=gen, device=dev)[:n_lists]]
     rotation = ivf_pq_mod._make_rotation(gen, rot_dim, d, params.force_random_rotation)
+    init_centers, rotation = mesh.from_first(init_centers), mesh.from_first(rotation)
     return _sharded_ivf_pq_build_from(mesh, dataset, params, init_centers, rotation, axis=axis,
                                       fuse_comms=fuse_comms, comm_mode=comm_mode, ca_cap=ca_cap,
                                       ca_warmup=ca_warmup)
@@ -644,7 +657,6 @@ def _sharded_ivf_pq_build_from(mesh, dataset, params, init_centers, rotation, *,
     """:func:`sharded_ivf_pq_build` from given draws: ``init_centers
     [n_lists, d]`` and ``rotation [rot_dim, d]`` (how the tests feed both
     packages the JAX package's draws)."""
-    comms.expect_one_axis_controller(mesh, "sharded_ivf_pq_build")
     n_shards = comms.comm_size(mesh, axis)
     dev = mesh.devices[0]
     dataset = ser.as_tensor(dataset, dev).to(torch.float32)
@@ -657,14 +669,11 @@ def _sharded_ivf_pq_build_from(mesh, dataset, params, init_centers, rotation, *,
     ksub = 1 << params.pq_bits
     mode = _resolve_comm_mode(comm_mode, n_shards, n_rows=n_lists, d=d, ca_cap=ca_cap)
 
-    xs = comms.row_sharded(mesh, dataset)
+    xs = comms.row_sharded(mesh, dataset, axis)
     centers = comms.replicated(mesh, init_centers)
     rots = comms.replicated(mesh, rotation)
     mesh.fork()
-    caches = []
-    for r in range(n_shards):
-        with mesh.on(r):
-            caches.append(flash_norm_cache(xs[r], DistanceType.L2Expanded))
+    caches = _each(mesh, lambda x: flash_norm_cache(x, DistanceType.L2Expanded), xs)
     if mode == "ca":
         carry = None
         for it in range(params.kmeans_n_iters):
@@ -675,11 +684,8 @@ def _sharded_ivf_pq_build_from(mesh, dataset, params, init_centers, rotation, *,
                 continue
             centers, _, carry = dist_lloyd_step(mesh, centers, xs, n_lists, axis, caches=caches,
                                                 comm_mode="ca", carry=carry, ca_cap=ca_cap)
-        labs = []
-        for r in range(n_shards):
-            with mesh.on(r):
-                labs.append(flash_min_cluster_and_distance(
-                    xs[r], centers[r], metric=DistanceType.L2Expanded, cache=caches[r])[0])
+        labs = _each(mesh, lambda x, c, cache: flash_min_cluster_and_distance(
+            x, c, metric=DistanceType.L2Expanded, cache=cache)[0], xs, centers, caches)
     else:
         for _ in range(params.kmeans_n_iters):
             centers, _ = dist_lloyd_step(mesh, centers, xs, n_lists, axis, caches=caches,
@@ -688,28 +694,25 @@ def _sharded_ivf_pq_build_from(mesh, dataset, params, init_centers, rotation, *,
                                   fuse_comms=fuse_comms)
 
     # codebooks on the local residuals, seeded from a strided sample of
-    # every shard's residuals
+    # every shard's residuals along the axis
     nl = n // n_shards
     per = -(-ksub // n_shards)
     stride = max(1, nl // per)
-    resid, picks = [], []
-    for r in range(n_shards):
-        with mesh.on(r):
-            rr = ((xs[r] - centers[r][labs[r].to(torch.int64)]) @ rots[r].T).reshape(nl, pq_dim, -1)
-            idx = torch.clamp(torch.arange(per, device=rr.device) * stride, max=nl - 1)
-            resid.append(rr)
-            picks.append(rr[idx])
-    pool = comms.allgather(mesh, picks)  # [n_shards, per, pq_dim, pq_len] a shard
-    _note_build_comms(mesh, "seed", pool[0][0].numel() * 4, verb="allgather")
+    resid = _each(mesh, lambda x, c, lab, rot: ((x - c[lab.to(torch.int64)]) @ rot.T)
+                  .reshape(nl, pq_dim, -1), xs, centers, labs, rots)
+    picks = _each(mesh, lambda rr: rr[torch.clamp(torch.arange(per, device=rr.device) * stride,
+                                                  max=nl - 1)], resid)
+    pool = comms.allgather(mesh, picks, axis=axis)  # [n_shards, per, pq_dim, pq_len] a shard
+    _note_build_comms(mesh, "seed", pool[0][0].numel() * 4, axis, verb="allgather")
     n_seed = min(ksub, n_shards * nl)
-    books = []
-    for r in range(n_shards):
-        with mesh.on(r):
-            seed = pool[r].transpose(0, 1).reshape(n_shards * per, pq_dim, -1)
-            b = seed[:n_seed].permute(1, 0, 2)
-            if n_seed < ksub:
-                b = b.repeat(1, -(-ksub // n_seed), 1)[:, :ksub, :]
-            books.append(b.contiguous())
+
+    def seed_books(p):
+        b = p.transpose(0, 1).reshape(n_shards * per, pq_dim, -1)[:n_seed].permute(1, 0, 2)
+        if n_seed < ksub:
+            b = b.repeat(1, -(-ksub // n_seed), 1)[:, :ksub, :]
+        return b.contiguous()
+
+    books = _each(mesh, seed_books, pool)
     if mode == "ca":
         bcarry = None
         for _ in range(max(4, params.kmeans_n_iters)):
@@ -721,7 +724,8 @@ def _sharded_ivf_pq_build_from(mesh, dataset, params, init_centers, rotation, *,
     centers, books = centers[0], books[0]
     mesh.join([centers, books])
 
-    # encode and pack every row (a replicated index on shard 0's device)
+    # encode and pack every row (a replicated index on the first local
+    # shard's device; every process encodes the whole dataset)
     cand = ivf_common.topk_labels(dataset, centers, k=8)
     max_list = ivf_common.choose_max_list(cand[:, 0], n, n_lists, params.list_cap_factor)
     slot = ivf_common.assign_slots(cand, n_lists=n_lists, max_list=max_list)

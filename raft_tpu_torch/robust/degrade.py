@@ -21,6 +21,13 @@ rest instead of failing the query:
 
 With every shard healthy the unmasked search runs (``health=None``), so
 its bits are those of the plain sharded search.
+
+The mask is indexed by the coordinate along the search's ``axis`` on a
+mesh of any number of axes. On a process mesh each process probes the
+coordinates of its own shards and the processes agree on one mask (one
+gather of every process's probes, ANDed): a fault or a slow probe in the
+process that holds a shard downs that shard in every process, so every
+process merges the same candidates and returns the same answer.
 """
 from __future__ import annotations
 
@@ -51,20 +58,32 @@ class DegradedResult:
         return iter((self.distances, self.indices))
 
 
+def agreed_health(mesh, axis: str, probe) -> Tuple[bool, ...]:
+    """The health mask along ``axis``: ``probe(s)`` of each coordinate this
+    process holds a shard at (every coordinate on one controller; True for
+    the others), ANDed over the mesh's processes
+    (:meth:`raft_tpu_torch.parallel.comms.Mesh.agreed`)."""
+    mine = {mesh.coord(r, axis) for r in mesh.local_ranks}
+    return mesh.agreed([probe(s) if s in mine else True for s in range(mesh.shape[axis])])
+
+
 def probe_shard_health(mesh, axis: str = "data", algo: str = "ivf_flat") -> Tuple[bool, ...]:
     """Per-shard health mask of ``mesh`` along ``axis``: each shard is
     probed through the ``sharded_ann.shard_scan`` fault point, and a
     :class:`ShardFailure` raised there marks it unhealthy (counted in
-    ``robust.shard_failures{algo,shard}``). Other errors propagate."""
-    health = []
-    for s in range(mesh.shape[axis]):
+    ``robust.shard_failures{algo,shard}``). Other errors propagate. On a
+    process mesh each process probes its own shards and the processes
+    agree (:func:`agreed_health`)."""
+
+    def probe(s: int) -> bool:
         try:
             faults.fire("sharded_ann.shard_scan", shard=s, algo=algo, axis=axis)
-            health.append(True)
+            return True
         except ShardFailure:
             obs.inc("robust.shard_failures", algo=algo, shard=str(s))
-            health.append(False)
-    return tuple(health)
+            return False
+
+    return agreed_health(mesh, axis, probe)
 
 
 def sharded_search_degraded(

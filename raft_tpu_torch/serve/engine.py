@@ -51,6 +51,15 @@ whose per-shard host tiers follow the lists' ownership
 one. Its batches run behind the timed shard-health probe, and a dead host
 tier costs coverage as a failed shard does.
 
+The sharded registrations take a mesh of either kind and any number of
+axes (their lists split along ``axis``). On a process mesh every process
+runs its own engine, registers the same index, submits the same requests
+in the same order and drives :meth:`~ServingEngine.run_until_idle` (or
+``step(force=True)``), so its batches form from the queue alone, never
+from the host clock (no ``max_wait_ms`` flush, no deadlines); each batch's
+health mask is agreed between the processes, so every process serves the
+same answer.
+
 Planning: with the planner's gate on (``RAFT_TPU_PLAN``, on by default)
 every registration carries a :class:`~raft_tpu_torch.plan.RegistrationPlan`
 (the engine of each bucket, the merge engine, the tier label), which
@@ -262,10 +271,7 @@ class ServingEngine:
         if algo == "tiered_sharded" and mesh is None:
             mesh, axis = index.mesh, index.axis
         if algo.startswith("sharded_") or algo == "tiered_sharded":
-            from raft_tpu_torch.parallel.comms import expect_one_axis_controller
-
             expects(mesh is not None, "sharded algo %r needs mesh=", algo)
-            expect_one_axis_controller(mesh, f"the engine's {algo} registration")
         if algo in _SHARDED_TIERABLE:
             algo, index, dataset = self._plan_tier_sharded(
                 index_id, algo, index, dataset, mesh=mesh, axis=axis, merge_mode=merge_mode,
@@ -616,23 +622,26 @@ class ServingEngine:
         (``robust.shard_failures``) or takes longer than ``slow_shard_s`` on
         the host clock (``serve.slow_shards{index_id,shard}``) marks the
         shard unhealthy, so the batch degrades coverage instead of waiting
-        out a slow shard."""
+        out a slow shard. On a process mesh each process probes and times
+        its own shards and the processes agree on one mask
+        (:func:`raft_tpu_torch.robust.degrade.agreed_health`)."""
+        from raft_tpu_torch.robust.degrade import agreed_health
+
         mesh, axis, algo = reg.mesh, reg.axis, reg.algo.replace("sharded_", "")
-        health = []
-        for s in range(mesh.shape[axis]):
+
+        def probe(s: int) -> bool:
             t0 = time.perf_counter()
             try:
                 faults.fire("sharded_ann.shard_scan", shard=s, algo=algo, axis=axis)
-                ok = True
             except ShardFailure:
                 obs.inc("robust.shard_failures", algo=algo, shard=str(s))
-                ok = False
-            if ok and self.slow_shard_s is not None:
-                if time.perf_counter() - t0 > self.slow_shard_s:
-                    obs.inc("serve.slow_shards", index_id=reg.index_id, shard=str(s))
-                    ok = False
-            health.append(ok)
-        return tuple(health)
+                return False
+            if self.slow_shard_s is not None and time.perf_counter() - t0 > self.slow_shard_s:
+                obs.inc("serve.slow_shards", index_id=reg.index_id, shard=str(s))
+                return False
+            return True
+
+        return agreed_health(mesh, axis, probe)
 
     # -- query planning ----------------------------------------------------
 

@@ -180,14 +180,18 @@ class TieredShardedIndex:
     is the built index that :func:`~raft_tpu_torch.parallel.sharded_ann.
     sharded_ivf_pq_lists_search` (or ``sharded_ivf_flat_search``) splits over
     ``mesh``'s ``axis``; ``tier`` is the matching :class:`ShardedHostTier`.
-    :meth:`search` returns a :class:`~raft_tpu_torch.robust.degrade.DegradedResult`."""
+    :meth:`search` returns a :class:`~raft_tpu_torch.robust.degrade.DegradedResult`.
+
+    ``mesh`` is of either kind and any number of axes. On a process mesh
+    every process passes the whole index and the whole tier, as it passes
+    the whole index to the sharded search, and reads the merged winners'
+    rows itself; the shards whose tier failed are agreed between the
+    processes (a shard counts as failed when its read failed in any
+    process), so every process returns the same answer."""
 
     def __init__(self, mesh, algo: str, index, tier: ShardedHostTier, *, axis: str = "data",
                  refine_ratio: int = 8, micro_batch: int = 256, search_params=None,
                  merge_mode: str = "auto", metric_arg: float = 2.0):
-        from raft_tpu_torch.parallel.comms import expect_one_axis_controller
-
-        expect_one_axis_controller(mesh, "TieredShardedIndex")
         expects(algo in ALGOS, "tiered sharded algo must be one of %s, got %r", ALGOS, algo)
         expects(refine_ratio >= 1, "refine_ratio must be >= 1")
         expects(micro_batch >= 1, "micro_batch must be >= 1")
@@ -248,6 +252,19 @@ class TieredShardedIndex:
         return search(self.mesh, self.index, queries, kk, self.search_params, axis=self.axis,
                       health=health, merge_mode=merge_mode)
 
+    def _agree_failed(self, masked: np.ndarray, failed: Tuple[int, ...]):
+        """The tier failures of every process (one gather of each process's
+        failed shards): candidates owned by a shard that failed anywhere
+        become ``-1`` here too."""
+        ok = self.mesh.agreed([s not in failed for s in range(self.n_shards)])
+        agreed = tuple(s for s, good in enumerate(ok) if not good)
+        extra = [s for s in agreed if s not in failed]
+        if extra:
+            valid = masked >= 0
+            own = self.tier.owner[np.where(valid, masked, 0)]
+            masked = np.where(valid & np.isin(own, extra), -1, masked).astype(np.int32)
+        return masked, agreed
+
     def search(self, queries, k: int, *, overlap: bool = True, micro_batch: Optional[int] = None,
                merge_mode: Optional[str] = None, health: Optional[Sequence[bool]] = None,
                min_coverage: float = 0.0):
@@ -301,6 +318,8 @@ class TieredShardedIndex:
             t0 = time.perf_counter()
             slab, masked, failed = self.tier.gather_to(cand_host, self.device)
             dt = time.perf_counter() - t0
+            if self.mesh.is_process:
+                masked, failed = self._agree_failed(masked, failed)
             failed_tiers.update(failed)
             cand = cand if not failed else torch.from_numpy(masked).to(self.device)
             # the span measures the enqueue only: the pipeline owns the sync
