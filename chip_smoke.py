@@ -1,7 +1,7 @@
 """Chip smoke test of the raft_tpu_torch port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--quick] [--profile]
-    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica,prims,geo,data,graph,procs [--tree DIR] [--seed 0]
+    python3 chip_smoke.py --phases paths,serve,ring,b1,b3,rabitq,b4,mutable,robust,tiered,multi,replica,prims,geo,data,graph,procs,bench [--tree DIR] [--seed 0]
 
 Phases, in order; any failure exits non-zero:
 
@@ -230,13 +230,24 @@ Phases, in order; any failure exits non-zero:
    "cols"))`` along ``cols`` (the build CA only), each equal to
    ``make_mesh(["cuda:0"] * 2)``'s, with its ``ring_onecard`` launches
    (one a group a ring).
+18. the bench (:func:`bench_phase`, ``raft_tpu_torch.bench``) in a
+   temporary directory: (a) ``python -m raft_tpu_torch.bench``'s ``main``
+   over the ``smoke`` group on ``smoke-10k``, one algorithm a call, each
+   report and CSV held against the grid, B1, B2 and B4 launched under
+   IVF-Flat, IVF-PQ and CAGRA; (b) ``run_case`` on the 1M x 128
+   ``sift-128-euclidean`` registry set (:data:`BENCH_FULL`), each
+   algorithm's first point equal in ids to a direct search of its index,
+   the rows and the operating point at recall 0.95; (c) closed- and
+   open-loop load (:data:`BENCH_LOAD`) on a ``ServingEngine(max_batch=128)``
+   serving (b)'s IVF-Flat index through B1, each request's ids equal to a
+   direct search; (d) ``bench.prims.run`` over its eight cases.
 
 Every kernel build starts at once. While the others compile, phase 2 runs
 the ring's parts (the ring builds first: B5-B7's checks and timed lines),
 then phase 16's card-vs-CPU part (no kernel), then B2's checks, then B1's
 and B4's once they are built. Phases 3, 4, 6, 7, 9 and 17, which launch no
 B3, run while B3 (the longest build) compiles; phase 2's B3 checks, then
-phases 5, 8 and 10-16, follow. Every phase prints its ``phase_s`` and the
+phases 5, 8, 10-16 and 18, follow. Every phase prints its ``phase_s`` and the
 caching allocator's state (reserved and allocated GB, ``alloc_retries``).
 
 Phase 2 also holds B5 ``hop_merge`` (rows 32 and 2,560, widths 10, 80 and
@@ -253,7 +264,7 @@ engine and of the gather merge into host and device time
 stage clock (``fused_ring_topk_split``).
 
 Each kernel's launch count is zeroed just before its path runs (phases
-3-12 and 14) and read just after (phases 13, 15 and 16 launch none). ``--quick`` runs phases 1-2 only; ``--profile``
+3-12, 14 and 18) and read just after (phases 13, 15 and 16 launch none). ``--quick`` runs phases 1-2 only; ``--profile``
 adds torch.profiler traces of the IVF-Flat, IVF-PQ, CAGRA and sharded
 IVF-Flat serving backlogs. ``--phases`` runs only the parts it names
 (:func:`run_phases`): ``paths`` times the IVF-Flat search paths per call
@@ -266,7 +277,8 @@ sharded backlog's QPS, :func:`sharded_serve_qps`), ``tiered`` phase 10,
 ``multi`` phase 11, ``replica`` phase 12, ``prims`` phase 13, ``geo``
 phase 14 (after B2, B4 and phase 6's CAGRA build), ``data`` phase 15,
 ``graph`` phase 16, ``procs`` phase 17 (after the ring and B2 builds and
-the 1M IVF-Flat, IVF-PQ and CAGRA indexes);
+the 1M IVF-Flat, IVF-PQ and CAGRA indexes), ``bench`` phase 18 (after the
+B1, B2 and B4 builds);
 with ``--tree`` they import
 ``raft_tpu_torch`` from that tree (default: this file's directory), so
 that two trees unpacked with ``git archive`` can be compared in turns on
@@ -4726,8 +4738,8 @@ def procs_child(rank: int, world: int, work: str, backend: str, device: str, tag
         probed = ivf_flat.probe_mask(flat.centers, qc, spec["n_probes"], flat.metric)
         v80, i80 = ivf_flat.flat_scan_core(
             flat.list_data[sl], flat.list_indices[sl], flat.list_norms[sl], qc, probed[:, sl], None,
-            k=8 * k, metric=flat.metric, chunk_lists=ivf_flat.scan_chunk_lists(l_local,
-                                                                                 flat.max_list))
+            k=8 * k, metric=flat.metric, has_filter=False,
+            chunk_lists=ivf_flat.scan_chunk_lists(l_local, flat.max_list))
         sv, si = rt.scan_ring_topk(mesh, [v80], [i80], k)
         arrays["scan80_d"], arrays["scan80_i"] = sv[0].cpu().numpy(), si[0].cpu().numpy()
         torch.cuda.synchronize()
@@ -4987,7 +4999,7 @@ def procs_refs(mesh, index, pq_index, X_card, Qt, spec) -> dict:
         sl = slice(r * l_local, (r + 1) * l_local)
         v, i = ivf_flat.flat_scan_core(
             index.list_data[sl], index.list_indices[sl], index.list_norms[sl], qc, probed[:, sl],
-            None, k=8 * k, metric=index.metric,
+            None, k=8 * k, metric=index.metric, has_filter=False,
             chunk_lists=ivf_flat.scan_chunk_lists(l_local, index.max_list))
         vs.append(v.to(mesh.devices[r]))
         is_.append(i.to(mesh.devices[r]))
@@ -5114,9 +5126,338 @@ def procs_phase(card: str, index, pq_index, cg, X, X_card, Q, gt_i, k: int, size
     return out
 
 
+# -- phase 18: the bench (raft_tpu_torch.bench) ------------------------------------------
+
+#: phase 18 (b)'s points on the 1M registry set: (build params, search grid)
+BENCH_FULL = {
+    "raft_ivf_flat": ({"nlist": 1024, "ratio": 4, "niter": 20}, {"nprobe": [10, 20, 50]}),
+    "raft_ivf_pq": ({"nlist": 1024, "pq_dim": 64, "pq_bits": 8, "ratio": 10, "niter": 20},
+                    {"nprobe": [20, 50], "refine_ratio": [1, 2]}),
+    # the IVF-PQ route is the one phase 6 builds 1M CAGRA with
+    "raft_cagra": ({"graph_degree": 32, "intermediate_graph_degree": 64,
+                    "graph_build_algo": "IVF_PQ"}, {"itopk": [64, 128], "search_width": [1, 4]}),
+}
+#: phase 18 (b)'s cap on the sweeps of a point, far above what one second
+#: of 1,000-query sweeps takes, so that ``min_search_time`` sets the window
+BENCH_MAX_ITERATIONS = 10_000
+#: phase 18 (c): how far the served recall@10 of a batch-dependent tile may
+#: fall under a direct search's of the same rows
+BENCH_SERVED_RECALL_TOL = 0.01
+#: phase 18 (c): requests of 8 rows, closed loop at 16 in flight, open loop at
+#: 2,000 requests/s
+BENCH_LOAD = dict(requests=2000, rows=8, concurrency=16, rate_qps=2000.0)
+
+
+@contextlib.contextmanager
+def kept_index(harness, algo: str):
+    """Keep the index ``harness.run_case`` builds for ``algo`` (the list
+    the context yields), so that a direct search can query it."""
+    build, search = harness.ALGOS[algo]
+    kept = []
+
+    def keep(ds, p, res):
+        kept.append(build(ds, p, res))
+        return kept[-1]
+
+    harness.ALGOS[algo] = (keep, search)
+    try:
+        yield kept
+    finally:
+        harness.ALGOS[algo] = (build, search)
+
+
+def host_knn_check(base: np.ndarray, queries: np.ndarray, gt: np.ndarray, rows) -> int:
+    """Hold ``gt``'s top-k ids of the queries ``rows`` against an exact
+    float64 kNN on the host (L2). Where the id sets differ, the sorted
+    exact distances must agree within 1e-5 of the norms' scale (about the
+    error of the float32 expanded form the card computes): a tie.
+    Returns the number of queries whose id sets differ by ties; raises on
+    any other difference."""
+    k = gt.shape[1]
+    xs = base.astype(np.float64)
+    x2 = np.einsum("ij,ij->i", xs, xs)
+    q = queries[rows].astype(np.float64)
+    d = x2[None, :] - 2.0 * (q @ xs.T) + np.einsum("ij,ij->i", q, q)[:, None]
+    ties = 0
+    for r in range(len(rows)):
+        got = gt[rows[r]]
+        ref = np.argpartition(d[r], k)[:k]
+        if set(got.tolist()) == set(ref.tolist()):
+            continue
+        tol = 1e-5 * (x2.max() + float(q[r] @ q[r]))
+        if (len(set(got.tolist())) != k or got.min() < 0
+                or not np.allclose(np.sort(d[r][got]), np.sort(d[r][ref]), rtol=0, atol=tol)):
+            raise AssertionError(f"ground truth of query {rows[r]} differs from an exact "
+                                 f"float64 kNN beyond ties: {sorted(got)} vs {sorted(ref)}")
+        ties += 1
+    return ties
+
+
+def bench_phase(card: str, res) -> dict:
+    """Phase 18, the bench, in a temporary work directory (its data cache,
+    reports and CSVs): (a) the CLI over the ``smoke`` group on
+    ``smoke-10k`` for each algorithm, each report and CSV held against the
+    grid, brute force's recall >= 0.999, and B1, B2 and B4 launched under
+    ``raft_ivf_flat``, ``raft_ivf_pq`` and ``raft_cagra``, the CLI's ground
+    truth equal to a float64 kNN on the host up to ties; (b) ``run_case``
+    at full width on ``sift-128-euclidean`` (1M x 128, 1,000 queries,
+    ground truth by the port's brute force on the card, 64 of its queries
+    held against a float64 kNN on the host) over :data:`BENCH_FULL`, each
+    point's window set by ``min_search_time`` (1 s), the first point of
+    each algorithm's ``found`` ids equal to a direct search of the same
+    index, the rows and the operating point at recall 0.95; (c) closed and
+    open loops of :data:`BENCH_LOAD` on a ``ServingEngine(max_batch=128)``
+    serving (b)'s IVF-Flat index through B1 at ``n_probes=20``, every
+    request accounted for: with one-query tiles of one-list units (every
+    answer independent of the batch it rode in) each request's ids equal
+    to a direct search of its rows, and with phase 3's serving tile the
+    served recall@10 within :data:`BENCH_SERVED_RECALL_TOL` of a direct
+    search's; (d) ``prims.run`` over the eight cases. Returns the launches
+    of B1, B2 and B4 in the phase."""
+    import csv
+    import shutil
+    import tempfile
+
+    from raft_tpu_torch.bench import __main__ as bench_cli
+    from raft_tpu_torch.bench import configs, datasets, harness, loadgen, prims
+    from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
+    from raft_tpu_torch.ops import cagra_search, ivf_scan, pq_scan
+    from raft_tpu_torch.serve import ServingEngine
+
+    t_phase = time.perf_counter()
+    kernels = {"fused_list_topk": ivf_scan.fused_list_topk, "fused_pq_topk": pq_scan.fused_pq_topk,
+               "cagra_fused_search": cagra_search.cagra_fused_search}
+    expected = {"raft_ivf_flat": "fused_list_topk", "raft_ivf_pq": "fused_pq_topk",
+                "raft_cagra": "cagra_fused_search"}
+    totals = dict.fromkeys(kernels, 0)
+
+    def zero():
+        for f in kernels.values():
+            f.launches = 0
+
+    def read():
+        got = {name: f.launches for name, f in kernels.items()}
+        for name, n in got.items():
+            totals[name] += n
+        return got
+
+    work = tempfile.mkdtemp(prefix="bench_")
+    saved_env, saved_dir = os.environ.get("RAFT_TPU_BENCH_DATA"), datasets.DATA_DIR
+    os.environ["RAFT_TPU_BENCH_DATA"] = work
+    datasets.DATA_DIR = work
+    try:
+        # (a) the CLI, in process, one algorithm a call
+        t0 = time.perf_counter()
+        smoke = configs.GROUPS["smoke"]
+        for algo, grids in smoke.items():
+            out, csv_out = os.path.join(work, f"{algo}.json"), os.path.join(work, f"{algo}.csv")
+            zero()
+            rc = bench_cli.main(["--dataset", "smoke-10k", "--group", "smoke", "--algos", algo,
+                                 "--min-search-time", "0.5", "--out", out, "--csv-out", csv_out])
+            launches = read()
+            if rc != 0:
+                raise AssertionError(f"phase 18 (a): the CLI exited {rc} on {algo}")
+            with open(out) as f:
+                report = json.load(f)
+            cons = configs.constraint(algo)
+            points = [(bp, sp) for bp in harness._grid(grids["build"])
+                      for sp in harness._grid(grids["search"]) if cons is None or cons(bp, sp)]
+            rows = report["benchmarks"]
+            if len(rows) != len(points):
+                raise AssertionError(f"phase 18 (a): {algo} gave {len(rows)} rows for "
+                                     f"{len(points)} grid points")
+            keys = set(harness.BenchResult("", "", "", 0, 0, {}, {}, 0.0, 0.0, 1, 0, 0.0, 0.0,
+                                           0.0).to_json())
+            if any(set(r) != keys for r in rows):
+                raise AssertionError(f"phase 18 (a): {algo}'s rows do not carry to_json's keys")
+            if [(r["build_params"], r["search_params"]) for r in rows] != points:
+                raise AssertionError(f"phase 18 (a): {algo}'s rows are not the grid's points")
+            with open(csv_out) as f:
+                csv_names = [r["name"] for r in csv.DictReader(f)]
+            if csv_names != [r["name"] for r in rows]:
+                raise AssertionError(f"phase 18 (a): {algo}'s CSV rows differ from its report")
+            if algo == "raft_brute_force" and min(r["Recall"] for r in rows) < 0.999:
+                raise AssertionError(f"phase 18 (a): brute force recall {rows[0]['Recall']}")
+            if algo in expected and launches[expected[algo]] <= 0:
+                raise AssertionError(f"phase 18 (a): {expected[algo]} not launched under {algo}: "
+                                     f"{launches}")
+            emit(card, phase="bench", part="cli", algo=algo, device=report["context"]["device"],
+                 rows=[{k: r[k] for k in ("name", "items_per_second", "Recall", "Latency",
+                                          "build_time", "iterations")} for r in rows],
+                 launches=launches)
+        # the CLI's ground truth (cached in the work directory) against an
+        # exact float64 kNN on the host, every query
+        sm = datasets.get_dataset("smoke-10k")
+        ties = host_knn_check(sm.base, sm.queries, sm.ground_truth(10, res=res),
+                              np.arange(sm.queries.shape[0]))
+        emit(card, phase="bench", part="cli", metric="ground_truth_vs_host_f64", equal=True,
+             queries=sm.queries.shape[0], differing_by_ties=ties)
+        emit(card, phase="bench", part="cli", metric="phase_s", value=time.perf_counter() - t0)
+
+        # (b) full width: run_case on the 1M registry set
+        t0 = time.perf_counter()
+        ds = datasets.get_dataset("sift-128-euclidean")
+        t_gt = time.perf_counter()
+        gt = ds.ground_truth(10, res=res)
+        emit(card, phase="bench", part="full", metric="ground_truth_s",
+             value=time.perf_counter() - t_gt, n=ds.n, dim=ds.dim, queries=ds.queries.shape[0])
+        # 64 of its queries, evenly spaced, against an exact float64 kNN on the host
+        sample = np.arange(0, ds.queries.shape[0], ds.queries.shape[0] // 64)[:64]
+        t_host = time.perf_counter()
+        ties = host_knn_check(ds.base, ds.queries, gt, sample)
+        emit(card, phase="bench", part="full", metric="ground_truth_vs_host_f64", equal=True,
+             queries=len(sample), differing_by_ties=ties, host_s=time.perf_counter() - t_host)
+        Qd = torch.from_numpy(ds.queries).cuda()
+        direct = {
+            "raft_ivf_flat": lambda index, sp: ivf_flat.search(
+                index, Qd, 10, ivf_flat.IvfFlatSearchParams(
+                    n_probes=sp["nprobe"], fused_qt=64, fused_probe_factor=4, fused_group=1,
+                    fused_merge="seg", fused_precision="highest"), query_batch=1024),
+            "raft_ivf_pq": lambda index, sp: ivf_pq.search(
+                index, Qd, 10, ivf_pq.IvfPqSearchParams(n_probes=sp["nprobe"]), query_batch=1024),
+            "raft_cagra": lambda index, sp: cagra.search(
+                index, Qd, 10, cagra.CagraSearchParams(itopk_size=sp["itopk"],
+                                                       search_width=sp["search_width"]),
+                query_batch=1024),
+        }
+        full, flat_index = {}, None
+        for algo, (bp, grid) in BENCH_FULL.items():
+            with kept_index(harness, algo) as kept:
+                zero()
+                # the window is set by min_search_time, not by the
+                # iteration cap (a 1,000-query sweep takes 2-15 ms)
+                rows = harness.run_case(ds, algo, bp, list(harness._grid(grid)), k=10,
+                                        batch=1024, min_search_time=1.0,
+                                        max_iterations=BENCH_MAX_ITERATIONS, res=res)
+                torch.cuda.synchronize()
+                launches = read()
+            index = kept[0]
+            first = rows[0]
+            _, ids = direct[algo](index, first.search_params)
+            if not np.array_equal(first.found, ids.cpu().numpy()):
+                raise AssertionError(f"phase 18 (b): {algo}'s harness ids differ from a direct "
+                                     f"search at {first.search_params}")
+            if launches[expected[algo]] <= 0:
+                raise AssertionError(f"phase 18 (b): {expected[algo]} not launched under {algo}")
+            short = [(r.search_params, r.iterations, r.end_to_end) for r in rows
+                     if r.end_to_end < 1.0]
+            if short:
+                raise AssertionError(f"phase 18 (b): {algo}'s windows under min_search_time "
+                                     f"(the iteration cap ended them): {short}")
+            op = harness.operating_point(rows, 0.95)
+            full[algo] = {"rows": [r.to_json() for r in rows],
+                          "operating_point": op.to_json() if op else None, "launches": launches}
+            emit(card, phase="bench", part="full", algo=algo, build_s=first.build_time,
+                 rows=[{"search_params": r.search_params, "qps": r.qps, "recall": r.recall,
+                        "latency_s": r.latency, "iterations": r.iterations,
+                        "window_s": r.end_to_end} for r in rows],
+                 operating_point_95=None if op is None else {
+                     "search_params": op.search_params, "qps": op.qps, "recall": op.recall},
+                 launches=launches, harness_ids_equal_direct=True)
+            if algo == "raft_ivf_flat":
+                flat_index = index
+                # the harness's fused defaults (JAX's: 64-query tiles, a
+                # table of 4 x n_probes units of one list) against the base
+                # grid's knobs and phase 3's tile, at 20 probes (reported)
+                table = {}
+                for qt, pf, g in ((64, 4, 1), (64, 32, 8), (SERVE_QT, 32, 8)):
+                    _, i = ivf_flat.search(index, Qd, 10, ivf_flat.IvfFlatSearchParams(
+                        n_probes=20, fused_qt=qt, fused_probe_factor=pf, fused_group=g),
+                        mode="fused")
+                    table[f"qt{qt}_pf{pf}_group{g}"] = harness.recall_at_k(i.cpu().numpy(), gt, 10)
+                emit(card, phase="bench", part="full", metric="ivf_flat_recall_by_probe_table",
+                     n_probes=20, value=table)
+            del index, kept
+            torch.cuda.empty_cache()
+        emit(card, phase="bench", part="full", metric="phase_s", value=time.perf_counter() - t0,
+             **memory())
+
+        # (c) load on the engine over (b)'s IVF-Flat index
+        t0 = time.perf_counter()
+        # a fused tile scans the union of its queries' probes, and the
+        # queries are sorted into tiles, so only one-query tiles of one-list
+        # units make an answer independent of the batch it rode in: those
+        # answers must equal a direct search's. Phase 3's serving tile (16
+        # queries, units of 8 lists) answers by the batch, so its served
+        # recall@10 is held to the direct search's within BENCH_SERVED_RECALL_TOL
+        load = {}
+        served = (("qt1", ivf_flat.IvfFlatSearchParams(n_probes=20, fused_qt=1, fused_group=1)),
+                  (f"qt{SERVE_QT}", ivf_flat.IvfFlatSearchParams(n_probes=20, fused_qt=SERVE_QT)))
+        for tiles, params in served:
+            exact = tiles == "qt1"
+            eng = ServingEngine(max_batch=128, res=res)
+            eng.register("sift", "ivf_flat", flat_index, params=params, mode="fused")
+            _, want = ivf_flat.search(flat_index, Qd, 10, params, mode="fused")
+            want = want.cpu().numpy()
+            eng.submit("sift", ds.queries[:128], 10)  # the engine's first batch outside the runs
+            eng.run_until_idle()
+            for mode in ("closed", "open"):
+                zero()
+                if mode == "closed":
+                    rep, got = loadgen.run_closed_loop(
+                        eng, "sift", ds.queries, 10, concurrency=BENCH_LOAD["concurrency"],
+                        n_requests=BENCH_LOAD["requests"], request_rows=BENCH_LOAD["rows"],
+                        collect=True)
+                else:
+                    rep, got = loadgen.run_open_loop(
+                        eng, "sift", ds.queries, 10, rate_qps=BENCH_LOAD["rate_qps"],
+                        n_requests=BENCH_LOAD["requests"], request_rows=BENCH_LOAD["rows"],
+                        seed=0, collect=True)
+                launches = read()
+                where = f"phase 18 (c) {mode}, {tiles}"
+                if rep.completed + sum(rep.rejected.values()) != rep.n_requests:
+                    raise AssertionError(f"{where}: {rep.completed} completed and "
+                                         f"{rep.rejected} rejected of {rep.n_requests}")
+                rows_ids = np.concatenate([ids for ids, _ in got])
+                served_ids = np.concatenate([r for _, r in got])
+                served_recall = harness.recall_at_k(served_ids, gt[rows_ids], 10)
+                direct_recall = harness.recall_at_k(want[rows_ids], gt[rows_ids], 10)
+                differing = sum(not np.array_equal(r, want[ids]) for ids, r in got)
+                if exact and differing:
+                    raise AssertionError(f"{where}: {differing} requests' ids differ from a "
+                                         "direct search of their rows")
+                if served_recall < direct_recall - BENCH_SERVED_RECALL_TOL:
+                    raise AssertionError(f"{where}: served recall@10 {served_recall} under the "
+                                         f"direct search's {direct_recall} - "
+                                         f"{BENCH_SERVED_RECALL_TOL}")
+                if not rep.latency_ms_p50 <= rep.latency_ms_p95 <= rep.latency_ms_p99:
+                    raise AssertionError(f"{where}: percentiles out of order {rep.row()}")
+                if launches["fused_list_topk"] <= 0:
+                    raise AssertionError(f"{where}: B1 not launched")
+                load[f"{mode}_{tiles}"] = dict(rep.row(), launches=launches["fused_list_topk"])
+                emit(card, phase="bench", part="load", mode=mode, tiles=tiles, row=rep.row(),
+                     duration_s=rep.duration_s, latency_ms_mean=rep.latency_ms_mean,
+                     latency_ms_max=rep.latency_ms_max, rejected=rep.rejected,
+                     checked=len(got), requests_differing_from_direct=differing,
+                     served_recall=served_recall, direct_recall=direct_recall,
+                     b1_launches=launches["fused_list_topk"])
+            del eng
+        del flat_index
+        torch.cuda.empty_cache()
+        emit(card, phase="bench", part="load", metric="phase_s", value=time.perf_counter() - t0)
+
+        # (d) the prims
+        t0 = time.perf_counter()
+        prim_rows = prims.run("", inner=8, device="cuda")
+        if len(prim_rows) != 8 or any(not r["real_time"] > 0 for r in prim_rows):
+            raise AssertionError(f"phase 18 (d): {prim_rows}")
+        emit(card, phase="bench", part="prims", rows=prim_rows)
+        emit(card, phase="bench", part="prims", metric="phase_s", value=time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        datasets.DATA_DIR = saved_dir
+        if saved_env is None:
+            os.environ.pop("RAFT_TPU_BENCH_DATA", None)
+        else:
+            os.environ["RAFT_TPU_BENCH_DATA"] = saved_env
+    emit(card, phase="bench", metric="phase_s", value=time.perf_counter() - t_phase,
+         launches=totals, **memory())
+    return {"launches": totals, "full": full, "load": load}
+
+
 #: the parts ``--phases`` runs alone
 PHASE_PARTS = ("paths", "serve", "ring", "b1", "b3", "rabitq", "b4", "mutable", "robust",
-               "tiered", "multi", "replica", "prims", "geo", "data", "graph", "procs")
+               "tiered", "multi", "replica", "prims", "geo", "data", "graph", "procs", "bench")
 
 
 def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
@@ -5146,7 +5487,9 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
     index built as phase 6 builds it; ``data``: phase 15 (:func:`data_phase`)
     on phase 3's rows; ``graph``: phase 16 (:func:`graph_phase`) on its own
     data; ``procs``: phase 17 (:func:`procs_phase`) on phase 3's data and the
-    indexes of phases 3, 4 and 6. Each builds the kernels it launches first.
+    indexes of phases 3, 4 and 6; ``bench``: phase 18 (:func:`bench_phase`)
+    on the bench's own registry data. Each builds the kernels it launches
+    first.
     ``tree`` is the tree whose
     package runs; ``this_tree`` is False when it is not this file's, and
     then the lines an older kernel cannot give are skipped."""
@@ -5388,6 +5731,16 @@ def run_phases(card: str, parts, seed: int, tree: str, this_tree: bool,
         data_phase(card, torch.from_numpy(X).cuda(), seed)
     if "graph" in parts:
         graph_phase(card, seed)
+    if "bench" in parts:
+        from raft_tpu_torch.ops import cagra_search, pq_scan
+
+        mods = {"fused_list_topk": ivf_scan, "fused_pq_topk": pq_scan,
+                "cagra_fused_search": cagra_search}
+        with concurrent.futures.ThreadPoolExecutor(len(mods)) as ex:
+            builds = {name: ex.submit(mod.build_kernel, True) for name, mod in mods.items()}
+            for name, f in builds.items():
+                emit(card, phase="build", kernel=name, build_s=f.result()[1])
+        bench_phase(card, Resources(device="cuda", seed=seed))
     if "procs" in parts:
         from raft_tpu_torch.neighbors import cagra
         from raft_tpu_torch.ops import pq_scan
@@ -5912,7 +6265,8 @@ def main() -> int:
             sl = slice(r * l_local, (r + 1) * l_local)
             v, i = ivf_flat.flat_scan_core(index.list_data[sl], index.list_indices[sl],
                                            index.list_norms[sl], qc, probed[:, sl], None, k=width,
-                                           metric=index.metric, chunk_lists=g_local)
+                                           metric=index.metric, has_filter=False,
+                                           chunk_lists=g_local)
             vs.append(v)
             is_.append(i)
         return vs, is_
@@ -6077,6 +6431,9 @@ def main() -> int:
     graph_phase(card, args.seed, rng=graph_rng)
     emit(card, phase="graph", metric="memory", **memory())
 
+    # ---- phase 18: the bench (raft_tpu_torch.bench) ----------------------------------
+    bench = bench_phase(card, res)
+
     rows = []
     for name, src, line, launches, t in (
             ("fused_list_topk", "ivf_scan.cu", "raft_tpu/ops/pallas/ivf_scan.py:321", flat_launches, b1),
@@ -6123,6 +6480,8 @@ def main() -> int:
             rows[-1]["launches_procs_2x2"] = procs["onecard_2d"]
         if name == "fused_ring_topk":  # phase 9's backlog with shard 2 down
             rows[-1]["launches_degraded"] = robust["b6_launches"]
+        if name in bench["launches"]:  # phase 18: the bench's harness, CLI and load
+            rows[-1]["launches_bench"] = bench["launches"][name]
         if name == "cagra_fused_search":  # phase 14's hnsw searches launch B4 too
             rows[-1].update(per_step_us=t["per_step_us"], chain_floor_ms=t.get("chain_floor_ms"),
                             launches_hnsw=geo["b4_launches"])

@@ -146,9 +146,12 @@ def flash_min_cluster_and_distance(
     metric=DistanceType.L2Expanded,
     cache=None,
     row_block: int = 65536,
+    center_tile: int = 512,
 ):
     """Same labels and distances as :func:`min_cluster_and_distance`, with
-    the sample norms taken from ``cache`` (:func:`flash_norm_cache`)."""
+    the sample norms taken from ``cache`` (:func:`flash_norm_cache`).
+    ``center_tile`` is the JAX package's tile of centroids; a row block
+    here meets every centroid in one product, so it changes nothing."""
     metric = resolve_metric(metric)
     if cache is None:
         cache = flash_norm_cache(X, metric)

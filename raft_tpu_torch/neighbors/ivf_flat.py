@@ -310,7 +310,8 @@ def probe_mask(centers, qf, n_probes: int, metric: DistanceType) -> torch.Tensor
 
 
 def flat_scan_core(list_data, list_indices, list_norms, qf, probed, filter_bits, *, k: int,
-                   metric: DistanceType, chunk_lists: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   metric: DistanceType, has_filter: bool,
+                   chunk_lists: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked dense scan over (a shard of) the padded lists
     (``ivf_flat.py:366-459``). ``probed`` is ``[nq, n_lists_local]``;
     ``list_indices`` carry global row ids, so per-shard results merge
@@ -319,8 +320,11 @@ def flat_scan_core(list_data, list_indices, list_norms, qf, probed, filter_bits,
     or filtered slots and unprobed lists get ``-inf`` added, a ``max(2k,
     16)`` shortlist is selected and merged into the running top-k. The
     selection is exact, with ``lax.top_k``'s tie order (the JAX package's
-    ``approx_max_k`` is exact on the CPU). Returns ``(distances, ids)``."""
+    ``approx_max_k`` is exact on the CPU). ``filter_bits`` is read only
+    when ``has_filter``, as in the JAX package. Returns ``(distances, ids)``."""
     nq = qf.shape[0]
+    if not has_filter:
+        filter_bits = None
     n_lists, max_list = list_indices.shape
     d = list_data.shape[-1]
     G, M = chunk_lists, max_list
@@ -370,7 +374,8 @@ def _ivf_flat_scan_impl(centers, list_data, list_indices, list_norms, queries, f
         qf = normalize_rows(qf)
     probed = probe_mask(centers, qf, n_probes, metric)
     return flat_scan_core(list_data, list_indices, list_norms, qf, probed, filter_bits, k=k,
-                          metric=metric, chunk_lists=chunk_lists)
+                          metric=metric, has_filter=filter_bits is not None,
+                          chunk_lists=chunk_lists)
 
 
 def fused_group(index: IvfFlatIndex, params: IvfFlatSearchParams) -> int:

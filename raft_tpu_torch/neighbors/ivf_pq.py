@@ -860,7 +860,8 @@ def scan_bf16(lut_dtype, device) -> bool:
 
 def pq_scan_core(pq_centers, codes, list_indices, rot_sqnorms, q_rot, q_dot_c, probed,
                  filter_bits, *, k: int, metric: DistanceType, per_cluster: bool,
-                 chunk_lists: int, bf16: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                 has_filter: bool, chunk_lists: int,
+                 bf16: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode-and-score over (a shard of) the code lists
     (``ivf_pq.py:1045-1180``). ``codes`` are unpacked ``[n_lists, max_list,
     pq_dim]``; ``list_indices``, ``rot_sqnorms``, ``q_dot_c [nq, n_lists]``
@@ -869,8 +870,11 @@ def pq_scan_core(pq_centers, codes, list_indices, rot_sqnorms, q_rot, q_dot_c, p
     matmul) and scored by one matmul: L2 ``2 q_rot.r + 2 q.c - sqn``, IP
     ``q_rot.r + q.c``; empty, filtered or unprobed slots get ``-inf``; a
     ``max(2k, 16)`` shortlist per chunk is merged into the running top-k,
-    exactly (``lax.top_k``'s tie order). Returns ``(distances, ids)``."""
+    exactly (``lax.top_k``'s tie order). ``filter_bits`` is read only when
+    ``has_filter``, as in the JAX package. Returns ``(distances, ids)``."""
     nq = q_rot.shape[0]
+    if not has_filter:
+        filter_bits = None
     n_lists, max_list, pq_dim = codes.shape
     rot_dim = q_rot.shape[1]
     G, M = chunk_lists, max_list
@@ -936,7 +940,8 @@ def _ivf_pq_scan_impl(centers, rotation, pq_centers, codes, list_indices, rot_sq
     with obs.span("ivf_pq.search.pq_scan", nq=nq, k=k) as sp:
         return sp.sync(pq_scan_core(pq_centers, codes, list_indices, rot_sqnorms, q_rot, q_dot_c,
                                     probed, filter_bits, k=k, metric=metric,
-                                    per_cluster=per_cluster, chunk_lists=chunk_lists, bf16=bf16))
+                                    per_cluster=per_cluster, has_filter=filter_bits is not None,
+                                    chunk_lists=chunk_lists, bf16=bf16))
 
 
 #: scratch of one chunk of the RaBitQ scan on the card: its sign bits as
@@ -959,7 +964,7 @@ def rabitq_scan_chunk_lists(n_lists: int, max_list: int, rot_dim: int, nq: int) 
 
 
 def rabitq_scan_core(codes, corrections, list_indices, rot_sqnorms, q_rot, q_dot_c, probed,
-                     filter_bits, *, k: int, metric: DistanceType,
+                     filter_bits, *, k: int, metric: DistanceType, has_filter: bool,
                      chunk_lists: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RaBitQ dense scan over (a shard of) the lists
     (``ivf_pq.py:1338-1434``): per chunk of ``chunk_lists`` lists the sign
@@ -972,8 +977,11 @@ def rabitq_scan_core(codes, corrections, list_indices, rot_sqnorms, q_rot, q_dot
     ``-inf``. A ``max(2k, 16)`` shortlist a chunk is merged into the running
     top-k exactly (``lax.top_k``'s tie order, as :func:`pq_scan_core`).
     L2 returns ``max(||q||^2 - score, 0)`` (its root for L2Sqrt), IP the
-    score. Returns ``(distances, ids)``."""
+    score. ``filter_bits`` is read only when ``has_filter``, as in the JAX
+    package. Returns ``(distances, ids)``."""
     nq, D = q_rot.shape
+    if not has_filter:
+        filter_bits = None
     n_lists, max_list, _ = codes.shape
     G, M = chunk_lists, max_list
     expects(n_lists % G == 0, "chunk_lists %d does not divide %d lists", G, n_lists)
@@ -1030,7 +1038,7 @@ def _ivf_rabitq_scan_impl(centers, rotation, codes, corrections, list_indices, r
     with obs.span("ivf_pq.search.rabitq_xla", nq=nq, k=k) as sp:
         return sp.sync(rabitq_scan_core(codes, corrections, list_indices, rot_sqnorms, q_rot,
                                         q_dot_c, probed, filter_bits, k=k, metric=metric,
-                                        chunk_lists=g))
+                                        has_filter=filter_bits is not None, chunk_lists=g))
 
 
 def fused_rank_group(index: IvfPqIndex, params: IvfPqSearchParams) -> Tuple[torch.Tensor, int]:

@@ -28,10 +28,13 @@ def fused_l2_nn(
     x_sqnorm: Optional[torch.Tensor] = None,
     y_sqnorm: Optional[torch.Tensor] = None,
     sqrt: bool = False,
+    tile: int = 2048,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per row of ``x`` [m, d] the (squared) L2 distance to and index of
     its nearest row in ``y`` [n, d]. Returns ``(min_dist f32, argmin i32)``.
-    Rows of ``y`` with an infinite norm never win."""
+    Rows of ``y`` with an infinite norm never win. ``tile`` is the JAX
+    package's tile of ``y`` rows; every row of ``x`` here meets all of
+    ``y`` in one product, so it is accepted and changes nothing."""
     expects(x.ndim == 2 and y.ndim == 2, "fused_l2_nn expects 2-D inputs")
     expects(x.shape[1] == y.shape[1], "feature dims differ")
     xf = x.to(torch.float32)
@@ -75,12 +78,14 @@ def min_cluster_and_distance(
     x,
     centroids,
     metric=DistanceType.L2Expanded,
+    tile: int = 2048,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sample nearest centroid ``(labels i32, distances f32)``.
 
     L2 variants: the L2 scan directly. Cosine: rows and centroids are
     normalized first and the distance is ``||x̂-ĉ||²/2 == 1 - cos``.
-    InnerProduct: max inner product; the "distance" is the raw dot."""
+    InnerProduct: max inner product; the "distance" is the raw dot.
+    ``tile`` is accepted as in :func:`fused_l2_nn` and changes nothing."""
     metric = resolve_metric(metric)
     x = torch.as_tensor(x).to(torch.float32)
     c = torch.as_tensor(centroids).to(device=x.device, dtype=torch.float32)

@@ -192,7 +192,8 @@ def sharded_ivf_flat_search(mesh, index, queries, k: int,
             probed = ivf_flat_mod.probe_mask(parts["centers"][j], qf, n_probes, metric)
             v, i = ivf_flat_mod.flat_scan_core(
                 parts["data"][j], parts["ids"][j], parts["norms"][j], qf,
-                probed[:, a * l_local:(a + 1) * l_local], None, k=k, metric=metric, chunk_lists=g)
+                probed[:, a * l_local:(a + 1) * l_local], None, k=k, metric=metric,
+                has_filter=False, chunk_lists=g)
             if healthy is not None and not healthy[a]:
                 v, i = _demote(v, i, select_min)
             vs.append(v)
@@ -251,7 +252,7 @@ def sharded_ivf_pq_lists_search(mesh, index, queries, k: int,
             v, i = ivf_pq_mod.pq_scan_core(
                 parts["pq_centers"][j], parts["codes"][j], parts["ids"][j], parts["sqn"][j],
                 q_rot, q_dot_c[:, sl], probed[:, sl], None, k=k, metric=metric,
-                per_cluster=False, chunk_lists=g, bf16=bf16)
+                per_cluster=False, has_filter=False, chunk_lists=g, bf16=bf16)
             if healthy is not None and not healthy[a]:
                 v, i = _demote(v, i, select_min)
             vs.append(v)
