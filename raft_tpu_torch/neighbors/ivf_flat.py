@@ -389,11 +389,21 @@ def fused_group(index: IvfFlatIndex, params: IvfFlatSearchParams) -> int:
     group = max(1, min(params.fused_group, index.n_lists, cap))
     rank = index.center_rank
     if rank is not None and not bool(torch.equal(
-            rank.cpu().to(torch.int64), torch.arange(rank.shape[0]))):
+            _host_read(rank).to(torch.int64), torch.arange(rank.shape[0]))):
         group = 1
     while index.n_lists % group:
         group -= 1
     return group
+
+
+def _host_read(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``, a read that blocks the host until the device's queued
+    work is done: in the span ``ivf_flat.search.host_read``, counted by
+    the histogram ``ivf_flat.search.host_reads``."""
+    with obs.span("ivf_flat.search.host_read"):
+        out = t.cpu()
+    obs.observe("ivf_flat.search.host_reads", 1.0)
+    return out
 
 
 def _batched(run, queries, query_batch: int):
@@ -435,7 +445,15 @@ def search(
     scan keeps ``k * refine_ratio`` candidates and re-ranks them exactly
     against ``dataset`` (with :mod:`raft_tpu_torch.obs` enabled, in an
     ``ivf_flat.search.refine`` span, observing
-    ``ivf_flat.search.refine_candidates_per_query``)."""
+    ``ivf_flat.search.refine_candidates_per_query``).
+
+    With obs enabled, the search past the refine step runs in the span
+    ``ivf_flat.search``; inside it ``ivf_flat.search.plan`` (the mode and
+    the fused unit, with ``ivf_flat.search.host_read`` around the
+    blocking read of the center rank) and, on the fused path, the spans
+    and counters :func:`raft_tpu_torch.ops.ivf_scan.ivf_flat_fused_search`
+    records a query batch. None of these spans waits for the device: each
+    times the host's enqueue."""
     if params is None:
         params = IvfFlatSearchParams(**kwargs)
     dev = index.device
@@ -455,16 +473,33 @@ def search(
         with obs.span("ivf_flat.search.refine", k=k, candidates=int(kk)) as sp:
             return sp.sync(refine(refine_source(dataset, dev), queries, cand, k,
                                   metric=index.metric))
+    with obs.span("ivf_flat.search"):
+        return _search(index, queries, k, params, prefilter, query_batch, mode)
+
+
+def _search(index: IvfFlatIndex, queries: torch.Tensor, k: int, params: IvfFlatSearchParams,
+            prefilter: Optional[Bitset], query_batch: int, mode: str):
+    """:func:`search` past its refine step, on ``queries`` already on the
+    index's device."""
+    dev = index.device
     if prefilter is not None:
         expects(prefilter.size >= index.size, "prefilter smaller than index")
     filter_bits = prefilter.bits.to(dev) if prefilter is not None else None
     n_probes = min(params.n_probes, index.n_lists)
     nq = queries.shape[0]
-    if mode == "auto":
-        mode = ivf_common.auto_search_mode(dev, nq, supported_metric(index.metric),
-                                           algo="ivf_flat")
-    expects(mode in ("scan", "probe", "fused"), "mode must be auto|scan|probe|fused, got %r",
-            mode)
+    with obs.span("ivf_flat.search.plan"):
+        if mode == "auto":
+            mode = ivf_common.auto_search_mode(dev, nq, supported_metric(index.metric),
+                                               algo="ivf_flat")
+        expects(mode in ("scan", "probe", "fused"),
+                "mode must be auto|scan|probe|fused, got %r", mode)
+        if mode == "fused":
+            expects(supported_metric(index.metric), "fused mode: unsupported metric")
+            rank = index.center_rank
+            if rank is None:
+                rank = torch.from_numpy(
+                    spatial_center_rank(_host_read(index.centers).numpy())).to(dev)
+            group = fused_group(index, params)
     if mode == "scan":
         expects(supported_metric(index.metric), "scan mode: unsupported metric")
         g = scan_chunk_lists(index.n_lists, index.max_list)
@@ -476,12 +511,6 @@ def search(
 
         return _batched(run_scan, queries, query_batch)
     if mode == "fused":
-        expects(supported_metric(index.metric), "fused mode: unsupported metric")
-        rank = index.center_rank
-        if rank is None:
-            rank = torch.from_numpy(spatial_center_rank(index.centers.cpu().numpy())).to(dev)
-        group = fused_group(index, params)
-
         def run(qc):
             return ivf_flat_fused_search(
                 index.centers, rank, index.list_data, index.list_indices, index.list_norms,

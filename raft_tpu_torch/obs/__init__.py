@@ -12,6 +12,7 @@ flight recorder (``raft_tpu.obs`` counterpart, every module of it).
         sp.sync(out)            # wait for the outputs' CUDA stream
     if obs.is_enabled():
         obs.inc("serve.batches", index_id=index_id)
+        obs.observe_device("ivf_flat.fused.pairs_scanned", pairs)  # 0-d tensor, read at dump
 
 Disabled by default; enable with ``RAFT_TPU_OBS=1`` or ``obs.enable()``.
 """
@@ -33,6 +34,7 @@ from raft_tpu_torch.obs.metrics import (
     inc,
     is_enabled,
     observe,
+    observe_device,
     registry,
     set_gauge,
 )
@@ -86,6 +88,7 @@ __all__ = [
     "load_trace",
     "new_trace_id",
     "observe",
+    "observe_device",
     "recorder",
     "registry",
     "set_gauge",

@@ -106,6 +106,12 @@ class Histogram:
     implicit +Inf bucket catches the tail. Tracks sum and count like the
     Prometheus histogram type.
 
+    ``observe_device(value)`` takes a 0-d tensor without reading it: its
+    sum and bucket accumulate on its device (one float64 tensor of
+    ``len(buckets) + 2`` a device, whatever the number of observations)
+    until the registry is dumped or sampled, which reads each device's
+    accumulator in one transfer and folds it into the fields above.
+
     ``observe(value, trace_id=...)`` additionally keeps one **exemplar**
     per bucket — the worst (largest) value seen with a trace attached —
     so a tail bucket resolves to a concrete request trace instead of an
@@ -116,7 +122,7 @@ class Histogram:
 
     __slots__ = (
         "name", "labels", "buckets", "counts", "sum", "count",
-        "exemplars", "_lock",
+        "exemplars", "_pending", "_lock",
     )
     kind = "histogram"
 
@@ -135,6 +141,9 @@ class Histogram:
         self.count = 0
         #: bucket index -> (value, trace_id); worst value per bucket wins
         self.exemplars: Dict[int, Tuple[float, str]] = {}
+        #: device -> (bucket edges, accumulator [sum, counts...], one) of
+        #: the observations not read yet; None until the first
+        self._pending: Optional[Dict[Any, Tuple[Any, Any, Any]]] = None
         self._lock = lock
 
     def observe(self, value: float, trace_id: Optional[str] = None) -> None:
@@ -148,6 +157,49 @@ class Histogram:
                 prev = self.exemplars.get(bi)
                 if prev is None or value > prev[0]:
                     self.exemplars[bi] = (value, trace_id)
+
+    def observe_device(self, value) -> None:
+        """Observe the 0-d tensor ``value`` without reading it: it is
+        added on its own device, into the accumulator :meth:`_drain`
+        reads (no exemplar)."""
+        import torch
+
+        v = value.detach().reshape(()).to(torch.float64)
+        with self._lock:
+            if self._pending is None:
+                self._pending = {}
+            st = self._pending.get(v.device)
+            if st is None:
+                # the edges are filled in place: a copy from the host would
+                # wait on the device's stream
+                edges = torch.empty(len(self.buckets), dtype=torch.float64, device=v.device)
+                for i, b in enumerate(self.buckets):
+                    edges[i].fill_(b)
+                st = self._pending[v.device] = (
+                    edges,
+                    torch.zeros(len(self.buckets) + 2, dtype=torch.float64, device=v.device),
+                    torch.ones(1, dtype=torch.float64, device=v.device),
+                )
+            edges, acc, one = st
+            acc[:1].add_(v)
+            # bucketize(right=False) is observe()'s bisect_left
+            acc[1:].index_add_(0, torch.bucketize(v, edges).reshape(1), one)
+
+    def _drain(self) -> None:
+        """Fold the pending device observations into ``counts``, ``sum``
+        and ``count``: one read of each device's accumulator, which then
+        restarts at zero. The caller holds the lock."""
+        if not self._pending:
+            return
+        for _, acc, _ in self._pending.values():
+            vals = acc.tolist()
+            acc.zero_()
+            n = int(sum(vals[1:]))
+            if n:
+                self.sum += vals[0]
+                for i, c in enumerate(vals[1:]):
+                    self.counts[i] += int(c)
+                self.count += n
 
     def exemplar_rows(self) -> List[Dict[str, Any]]:
         """Exemplars as dicts, largest value first (dump/report shape)."""
@@ -217,6 +269,19 @@ class Registry:
             return
         self.histogram(name, **labels).observe(value, trace_id=trace_id)
 
+    def observe_device(self, name: str, value, **labels) -> None:
+        """:meth:`Histogram.observe_device` on the histogram ``name``."""
+        if not _enabled:
+            return
+        self.histogram(name, **labels).observe_device(value)
+
+    def _drain(self) -> None:
+        """Read every histogram's pending device observations (under the
+        lock): the dumps and :meth:`sample` call it first."""
+        for m in self._metrics.values():
+            if m.kind == "histogram":
+                m._drain()
+
     # -- sampling ----------------------------------------------------------
 
     def sample(
@@ -232,6 +297,7 @@ class Registry:
         pref = tuple(prefixes) if prefixes else None
         out: List[Tuple[str, str, LabelsKey, Any]] = []
         with self._lock:
+            self._drain()
             for m in self._metrics.values():
                 if pref is not None and not m.name.startswith(pref):
                     continue
@@ -259,7 +325,11 @@ class Registry:
         depth: int,
         args: Optional[Dict[str, Any]] = None,
         trace: Sequence[str] = (),
+        ts_ns: Optional[int] = None,
     ) -> None:
+        """Keep one span: ``ts_us`` on this registry's clock
+        (:meth:`now_us`), ``ts_ns`` (optional) its start on
+        ``torch.profiler``'s clock (:data:`raft_tpu_torch.obs.spans.profiler_clock_ns`)."""
         rec = {
             "name": name,
             "ts_us": ts_us,
@@ -268,6 +338,8 @@ class Registry:
             "depth": depth,
             "args": args or {},
         }
+        if ts_ns is not None:
+            rec["ts_ns"] = ts_ns
         if trace:
             rec["trace"] = list(trace)
         with self._lock:
@@ -303,6 +375,7 @@ class Registry:
         # metric list and formatting off-lock would copy counts/sum/count
         # mid-observe (torn histogram totals).
         with self._lock:
+            self._drain()
             for m in self._metrics.values():
                 key = self._fmt_key(m.name, m.labels)
                 if m.kind == "histogram":
@@ -328,6 +401,7 @@ class Registry:
         # build the records under the shared instrument lock (see
         # as_dict); only the stream writes happen off-lock
         with self._lock:
+            self._drain()
             for m in self._metrics.values():
                 rec: Dict[str, Any] = {
                     "kind": m.kind,
@@ -357,6 +431,7 @@ class Registry:
         # string formatting is cheap; holding the shared instrument lock
         # across it buys consistent bucket/sum/count triples (see as_dict)
         with self._lock:
+            self._drain()
             for m in self._metrics.values():
                 pname = _prom_name(m.name)
                 if pname not in seen_type:
@@ -426,3 +501,12 @@ def observe(
     if not _enabled:
         return
     _default.observe(name, value, trace_id=trace_id, **labels)
+
+
+def observe_device(name: str, value, **labels) -> None:
+    """Observe the 0-d integer or float tensor ``value`` into the
+    histogram ``name`` without reading it (no host sync): the registry
+    reads it when it is dumped or sampled. Off, it does nothing."""
+    if not _enabled:
+        return
+    _default.observe_device(name, value, **labels)

@@ -15,6 +15,13 @@ GPU:
   ``span()`` yields a shared null object and records nothing — no
   timestamps, no allocation beyond the generator frame, no wait.
 
+* **On the profiler's timeline.** On, a span also opens the
+  :mod:`raft_tpu_torch.core.tracing` range of its name (a
+  ``torch.profiler.record_function`` and an NVTX range), so a
+  ``torch.profiler`` trace shows it among its host events, and its record
+  carries ``ts_ns``, its start on the profiler's clock
+  (:data:`profiler_clock_ns`), beside ``ts_us`` on the registry's.
+
 Spans nest by wall-clock containment per thread (the Perfetto/Chrome
 ``ph: "X"`` convention); ``depth`` is tracked explicitly so reporters
 need not re-derive it.
@@ -27,9 +34,21 @@ import threading
 import time
 from typing import Any, Iterator, Optional
 
+from raft_tpu_torch.core import tracing
 from raft_tpu_torch.obs import metrics, request
 
 _tls = threading.local()
+
+#: Now on ``torch.profiler``'s clock, in ns. The profiler stamps its host
+#: events with TSC reads that c10's ``ApproximateClockToUnixTimeConverter``
+#: turns into ns since the Unix epoch, the clock (``CLOCK_REALTIME``) that
+#: ``time.time_ns`` reads, and Kineto lays the device's activity on that
+#: timeline. So a span's ``ts_ns`` compares directly with the
+#: ``start_ns()`` of the events in ``kineto_results.events()``
+#: (``tests/test_torch_ivf_flat_obs.py`` holds it on host events). On an
+#: H100 (torch 2.11, CUDA 12.8) the device's events sometimes slipped up
+#: to 9 ms before their own launch events late in a 30 s trace.
+profiler_clock_ns = time.time_ns
 
 
 def _stack() -> list:
@@ -106,8 +125,9 @@ _NULL = _NullSpan()
 @contextlib.contextmanager
 def span(name: str, **args) -> Iterator[Any]:
     """Record a nested wall-clock span named ``name`` into the default
-    registry. ``args`` become Chrome-trace args. Use ``sp.sync(out)`` on
-    the yielded handle to include device completion in the duration."""
+    registry, inside the profiler range of the same name. ``args`` become
+    Chrome-trace args. Use ``sp.sync(out)`` on the yielded handle to
+    include device completion in the duration."""
     if not metrics.is_enabled():
         yield _NULL
         return
@@ -116,23 +136,25 @@ def span(name: str, **args) -> Iterator[Any]:
     depth = len(st)
     s = Span(name, dict(args))
     st.append(s)
-    ts = reg.now_us()
-    t0 = time.perf_counter()
-    try:
-        yield s
-    finally:
-        if s._sync:
-            try:
-                _wait_outputs(s._sync)
-            except Exception:  # timing must never mask the real error
-                pass
-        dur = (time.perf_counter() - t0) * 1e6
-        if st and st[-1] is s:
-            st.pop()
-        reg.record_span(
-            name, ts, dur, threading.get_ident(), depth, s.args,
-            trace=request.current_trace(),
-        )
+    with tracing.push_range(name):
+        ts = reg.now_us()
+        ts_ns = profiler_clock_ns()
+        t0 = time.perf_counter()
+        try:
+            yield s
+        finally:
+            if s._sync:
+                try:
+                    _wait_outputs(s._sync)
+                except Exception:  # timing must never mask the real error
+                    pass
+            dur = (time.perf_counter() - t0) * 1e6
+            if st and st[-1] is s:
+                st.pop()
+            reg.record_span(
+                name, ts, dur, threading.get_ident(), depth, s.args,
+                trace=request.current_trace(), ts_ns=ts_ns,
+            )
 
 
 def traced(name: Optional[str] = None, sync_result: bool = True):

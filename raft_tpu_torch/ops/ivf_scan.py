@@ -39,11 +39,12 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from raft_tpu_torch import obs
 from raft_tpu_torch.core.errors import RaftError, expects
 from raft_tpu_torch.ops.cuda_build import build_library
 from raft_tpu_torch.ops.distance import DistanceType
@@ -801,7 +802,8 @@ def build_tile_probe_tables(
 class FusedInputs:
     """What one fused search hands the kernel: the ``group``-list unit
     view of the lists (``list_indices`` with the prefilter folded in), the
-    tile-sorted queries, the tile probe tables and the query order."""
+    tile-sorted queries, the tile probe tables and the query order; and
+    each query's own probed lists, which the tables were built from."""
 
     list_data: torch.Tensor  # [n_units, gm, d]
     list_norms: Optional[torch.Tensor]  # [n_units, gm]
@@ -810,6 +812,7 @@ class FusedInputs:
     tile_probes: torch.Tensor  # [n_qt, P] i32
     probe_valid: torch.Tensor  # [n_qt, P] i32
     order_pad: torch.Tensor  # [nq_pad] i32
+    probed: torch.Tensor  # [nq, n_lists] bool, in the queries' order
 
 
 def fused_search_inputs(
@@ -849,7 +852,47 @@ def fused_search_inputs(
         tile_probes=tile_probes,
         probe_valid=probe_valid,
         order_pad=order_pad,
+        probed=probed,
     )
+
+
+def fused_counts(fi: FusedInputs, list_indices, *, qt: int) -> Dict[str, torch.Tensor]:
+    """The work of one fused search, as 0-d int64 tensors on the tables'
+    device, computed there without a host read. ``list_indices`` is the
+    index's ``[n_lists, max_list]`` (-1 = empty slot).
+
+    * ``pairs_probed``: (query row, filled row) pairs of each query row's
+      own ``n_probes`` lists, ``probed`` times the lists' sizes.
+    * ``pairs_scanned``: (query slot, row slot) pairs the kernel's product
+      covers: for each tile, ``qt`` times ``ROWS_PER_CHUNK`` times its
+      valid units' chunks that hold a filled slot (:func:`chunk_table`);
+      with one tile a group, ``qt * n_work * ROWS_PER_CHUNK`` summed over
+      the tiles (:func:`work_list`).
+    * ``probes_dropped``: (query row, probed list) pairs whose unit the
+      row's tile did not keep among its ``P`` probe steps: above 0, the
+      probe budget (``probe_factor``) cuts probes.
+
+    Every row handed to the search counts, the zero rows that pad the
+    tail batch of :func:`raft_tpu_torch.neighbors.ivf_flat.search`
+    included: the kernel scans them."""
+    probed = fi.probed
+    nq, n_lists = probed.shape
+    n_qt = fi.tile_probes.shape[0]
+    n_units = fi.list_indices.shape[0]
+    dev = probed.device
+    sizes = (list_indices.reshape(n_lists, -1) >= 0).sum(dim=1)
+    pairs_probed = (probed.sum(dim=0, dtype=torch.int64) * sizes).sum()
+    # a tile lists a unit at most once among its valid steps
+    kept = torch.zeros((n_qt, n_units), dtype=torch.int32, device=dev).scatter_add_(
+        1, fi.tile_probes.to(torch.int64), fi.probe_valid) > 0
+    filled_chunks = chunk_table(fi.list_indices).sum(dim=1)
+    pairs_scanned = (kept * filled_chunks).sum() * (qt * ROWS_PER_CHUNK)
+    tile = torch.arange(nq, device=dev) // qt
+    by_tile = torch.zeros((n_qt, n_lists), dtype=torch.int32, device=dev).index_add_(
+        0, tile, probed[fi.order_pad[:nq].to(torch.int64)].to(torch.int32))
+    probes_dropped = (by_tile.reshape(n_qt, n_units, -1).sum(dim=2) * ~kept).sum()
+    return {"pairs_probed": pairs_probed, "pairs_scanned": pairs_scanned,
+            "probes_dropped": probes_dropped}
 
 
 def ivf_flat_fused_search(
@@ -873,36 +916,48 @@ def ivf_flat_fused_search(
     """IVF-Flat search through the fused scan: :func:`fused_search_inputs`,
     :func:`fused_list_topk` over ``group``-list units, post-processing and
     unsort (``ivf_scan.py:486-593``). Returns ``(distances [nq, k] f32,
-    indices [nq, k] i32)``."""
-    nq = queries.shape[0]
-    fi = fused_search_inputs(
-        centers, center_rank, list_data, list_indices, list_norms, queries, filter_bits,
-        n_probes=n_probes, metric=metric, qt=qt, probe_factor=probe_factor, group=group,
-    )
-    vals, slots = fused_list_topk(
-        fi.list_data, fi.list_norms, fi.list_indices, fi.queries_sorted,
-        fi.tile_probes, fi.probe_valid, k=k, metric=metric, qt=qt,
-        merge=merge, precision=precision,
-    )
-    qs = fi.queries_sorted
-    flat_ids = list_indices.reshape(-1)
-    sl = slots.to(torch.int64)
-    idx = torch.where(slots >= 0, flat_ids[torch.clamp(sl, min=0)], torch.full_like(slots, -1))
-    inf = torch.full_like(vals, float("inf"))
-    if metric == DistanceType.InnerProduct:
-        out = -vals
-    elif metric == DistanceType.CosineExpanded:
-        out = torch.where(idx >= 0, 1.0 + vals, inf)
-    else:
-        qn = torch.sum(qs * qs, dim=1)
-        out = torch.clamp(qn[:, None] + vals, min=0.0)
-        if metric == DistanceType.L2SqrtExpanded:
-            out = torch.sqrt(out)
-        out = torch.where(idx >= 0, out, inf)
+    indices [nq, k] i32)``.
 
-    order = fi.order_pad[:nq].to(torch.int64)
-    dist = torch.zeros((nq, k), dtype=torch.float32, device=qs.device)
-    ind = torch.full((nq, k), -1, dtype=torch.int32, device=qs.device)
-    dist[order] = out[:nq]
-    ind[order] = idx[:nq].to(torch.int32)
-    return dist, ind
+    With :mod:`raft_tpu_torch.obs` on, the three steps run in the spans
+    ``ivf_flat.search.tables``, ``.scan`` and ``.unsort``, which do not
+    wait for the device, and :func:`fused_counts` is observed on the
+    device as ``ivf_flat.fused.pairs_probed``, ``.pairs_scanned`` and
+    ``.probes_dropped``."""
+    nq = queries.shape[0]
+    with obs.span("ivf_flat.search.tables"):
+        fi = fused_search_inputs(
+            centers, center_rank, list_data, list_indices, list_norms, queries, filter_bits,
+            n_probes=n_probes, metric=metric, qt=qt, probe_factor=probe_factor, group=group,
+        )
+    with obs.span("ivf_flat.search.scan"):
+        vals, slots = fused_list_topk(
+            fi.list_data, fi.list_norms, fi.list_indices, fi.queries_sorted,
+            fi.tile_probes, fi.probe_valid, k=k, metric=metric, qt=qt,
+            merge=merge, precision=precision,
+        )
+    if obs.is_enabled():  # after the launch: enqueued while the kernel runs
+        for name, value in fused_counts(fi, list_indices, qt=qt).items():
+            obs.observe_device(f"ivf_flat.fused.{name}", value)
+    with obs.span("ivf_flat.search.unsort"):
+        qs = fi.queries_sorted
+        flat_ids = list_indices.reshape(-1)
+        sl = slots.to(torch.int64)
+        idx = torch.where(slots >= 0, flat_ids[torch.clamp(sl, min=0)], torch.full_like(slots, -1))
+        inf = torch.full_like(vals, float("inf"))
+        if metric == DistanceType.InnerProduct:
+            out = -vals
+        elif metric == DistanceType.CosineExpanded:
+            out = torch.where(idx >= 0, 1.0 + vals, inf)
+        else:
+            qn = torch.sum(qs * qs, dim=1)
+            out = torch.clamp(qn[:, None] + vals, min=0.0)
+            if metric == DistanceType.L2SqrtExpanded:
+                out = torch.sqrt(out)
+            out = torch.where(idx >= 0, out, inf)
+
+        order = fi.order_pad[:nq].to(torch.int64)
+        dist = torch.zeros((nq, k), dtype=torch.float32, device=qs.device)
+        ind = torch.full((nq, k), -1, dtype=torch.int32, device=qs.device)
+        dist[order] = out[:nq]
+        ind[order] = idx[:nq].to(torch.int32)
+        return dist, ind

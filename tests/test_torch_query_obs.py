@@ -11,7 +11,10 @@ inputs), and the two registries must hold:
   ``candidates_per_query``, ``n_iter`` and ``iterations``;
 * the same set of span names, each at the same nesting depth.
 
-Left out: span timings and args (several are trace-time only in JAX:
+Left out: the port's own spans and histograms of IVF-Flat's search
+(``PORT_SPANS``, ``PORT_HISTOGRAMS``: README, Observability), which the
+JAX package does not record; each case that reaches them names them in
+its expected spans. Span timings and args (several are trace-time only in JAX:
 ``traced=True``, tracer shapes), the sums of ``beam_occupancy`` (the two
 packages' CAGRA beams drift apart at near ties), and JAX's planner
 counters ``plan.*`` (an ``auto`` search counts its decision there; the
@@ -62,6 +65,11 @@ N, D, NQ = 1300, 24, 19
 CPU = Resources(device="cpu")
 #: histograms whose sums are deterministic in both packages
 EXACT_SUMS = ("n_probes", "candidates_per_query", "n_iter", "iterations")
+#: the port's instrumentation of IVF-Flat's search, which JAX lacks
+PORT_SPANS = frozenset({"ivf_flat.search", "ivf_flat.search.plan", "ivf_flat.search.host_read",
+                        "ivf_flat.search.tables", "ivf_flat.search.scan",
+                        "ivf_flat.search.unsort"})
+PORT_HISTOGRAMS = ("ivf_flat.search.host_reads", "ivf_flat.fused.")
 
 
 @pytest.fixture(scope="module")
@@ -115,13 +123,14 @@ def assert_same_obs(jfn, tfn, expect_spans=None):
     (j, jspans), (t, tspans) = record(jfn, jobs), record(tfn, tobs)
     assert j["counters"] == t["counters"]
     assert j["gauges"] == t["gauges"]
-    assert j["histograms"].keys() == t["histograms"].keys()
+    shared = {k for k in t["histograms"] if not k.startswith(PORT_HISTOGRAMS)}
+    assert j["histograms"].keys() == shared
     for key, jh in j["histograms"].items():
         th = t["histograms"][key]
         assert jh["count"] == th["count"], key
         if key.split("{")[0].rsplit(".", 1)[-1] in EXACT_SUMS:
             assert jh["sum"] == th["sum"], key
-    assert jspans == tspans
+    assert jspans == {s for s in tspans if s[0] not in PORT_SPANS}
     if expect_spans is not None:
         assert tspans == expect_spans
     return t
@@ -232,7 +241,8 @@ def test_ivf_flat_refine(data, flat_pair):
                              dataset=x),
         lambda: tflat.search(ti, q, 4, tflat.IvfFlatSearchParams(n_probes=3, refine_ratio=5),
                              dataset=x),
-        {("ivf_flat.search.refine", 0), ("refine.refine", 1)})
+        {("ivf_flat.search", 0), ("ivf_flat.search.plan", 1), ("ivf_flat.search.refine", 0),
+         ("refine.refine", 1)})
     assert t["histograms"]["ivf_flat.search.refine_candidates_per_query"]["sum"] == 20.0
 
 
